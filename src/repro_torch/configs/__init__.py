@@ -1,0 +1,29 @@
+"""repro_torch.configs — model configurations, mirroring
+``src/repro/configs/__init__.py``.
+
+Each ``<arch>.py`` exposes ``full()`` (the exact published config) and
+``smoke()`` (same family, reduced), with the numbers copied from the
+reference. Only the architectures the port serves are listed.
+"""
+from __future__ import annotations
+
+import importlib
+
+from ..models.common import ModelConfig
+
+ARCH_IDS = [
+    "qwen2_7b",
+]
+
+
+# aliases accepted on the CLI (--arch qwen2-7b etc.)
+def canonical(arch: str) -> str:
+    a = arch.replace("-", "_").replace(".", "_")
+    if a not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; have {ARCH_IDS}")
+    return a
+
+
+def get(arch: str, smoke: bool = False) -> ModelConfig:
+    mod = importlib.import_module(f".{canonical(arch)}", __name__)
+    return mod.smoke() if smoke else mod.full()

@@ -1,0 +1,608 @@
+"""Continuous-batching serve engine over a device-resident paged KV pool,
+with a LERC prefix cache underneath; mirrors ``src/repro/serve/engine.py``
+on its paged data plane.
+
+* **Chunked prefill** — each engine step feeds up to ``prefill_chunk``
+  prompt tokens per slot through one batched decode step; prefill-chunk
+  slots and decode slots share the dispatch, decode rows right-padded and
+  masked.
+* **Zero-copy paged attention** — the ``KVBlockPool`` is the ONLY KV
+  storage. Each slot owns a *block table* (host-side list of pool rows); a
+  prefix hit appends the store's rows to the table (zero copies), new
+  tokens are written by the model straight into the slot's tail pool rows
+  (in place), attention streams from the rows the table names (the CUDA
+  paged-attention kernel on the card, its plain version on the CPU), and
+  publish is an ownership transfer of the already-written rows to the
+  store. Rows are refcounted: evicting a block another slot still reads
+  defers the reclaim to that slot's completion.
+* **Pipelined host readback** — the argmax token of step N is routed into
+  step N+1's feed *on device*, so the engine only waits on a device→host
+  copy when a request finishes (or every ``eos_interval`` steps when EOS
+  detection is on).
+
+Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
+/ ``insert`` / ``complete_request`` calls and so every eviction decision)
+is the reference engine's, op for op: ``tests/test_torch_engine.py`` holds
+the two to identical tokens, eviction logs and metrics.
+
+Not ported yet, and refused with ``NotImplementedError``: the gather data
+plane (``paged=False``), tiered stores, serve tensor parallelism and
+``step_hlo``.
+"""
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..models.common import ModelConfig, tree_map
+from ..models.lm import cache_shapes, lm_decode_step
+from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
+                         TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
+from .kv_pool import KVBlockPool, chain_block_nbytes
+from .prefix_store import PrefixStore
+from .scheduler import QueueFull, Scheduler, StepCostModel, make_scheduler
+
+# pool rows a default-constructed engine starts with when the store's byte
+# budget is effectively unbounded (the pool doubles on demand)
+_DEFAULT_POOL_BLOCKS = 256
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another. Asking for CUDA where there is none raises; nothing falls
+    back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU unless asked "
+            "for the CPU (pass device='cpu', or --device cpu)")
+    return dev
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    prefix_rid: int = -1            # id inside the PrefixStore
+    slot: int = -1
+    pos: int = 0                    # next position to fill
+    generated: List[int] = field(default_factory=list)
+    n_generated: int = 0            # tokens emitted (generated may lag:
+                                    # pipelined readback materializes lazily)
+    prefill_skipped: int = 0
+    done: bool = False
+    cancelled: bool = False
+    # front-door timing, on the engine's virtual clock (scheduler SLOs)
+    arrival: float = 0.0
+    deadline: Optional[float] = None    # absolute TTFT deadline, or None
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    # un-synced per-step token vectors (pipelined readback)
+    _lazy_out: List = field(default_factory=list, repr=False)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
+                 max_seq: int = 256, store: Optional[PrefixStore] = None,
+                 eos_id: int = -1, prefill_chunk: int = 8,
+                 pool_blocks: Optional[int] = None,
+                 paged: bool = True,
+                 scheduler: Union[str, Scheduler, None] = None,
+                 max_queue: Optional[int] = None,
+                 clock: Optional[StepCostModel] = None,
+                 eos_interval: int = 8, tp: int = 1,
+                 kv_shard=None,
+                 device: Union[str, torch.device, None] = None) -> None:
+        self.device = resolve_device(device)
+        if not paged:
+            raise NotImplementedError(
+                "the gather data plane (paged=False) is not ported yet")
+        if tp != 1 or kv_shard is not None:
+            raise NotImplementedError(
+                "serve tensor parallelism is not ported yet")
+        if hasattr(store, "attach_pools"):
+            raise NotImplementedError("tiered KV stores are not ported yet")
+        if not set(cfg.layer_pattern) <= {"G"}:
+            raise NotImplementedError(
+                "the paged plane needs absolute-position KV caches; pattern "
+                f"{cfg.layer_pattern!r} is not ported yet")
+        # KV leaves as meta tensors: shapes and dtypes, no memory
+        template = tree_map(
+            lambda s: torch.empty(s, dtype=cfg.dtype, device="meta"),
+            cache_shapes(cfg, 1, 8))
+        self.tp = 1
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.B = max_slots
+        self.max_seq = max_seq
+        self.store = store or PrefixStore(capacity_bytes=1 << 62,
+                                          policy="lerc")
+        self.eos_id = eos_id
+        self.prefill_chunk = max(int(prefill_chunk), 1)
+        self.paged = True
+
+        # ----- paged pool: sized so the store's byte budget, not the pool,
+        # is always the binding constraint, plus each slot's private tail
+        # rows
+        bt = self.store.block_tokens
+        self.table_width = -(-max_seq // bt)
+        blk_bytes = chain_block_nbytes(template, bt)
+        if pool_blocks is None:
+            by_capacity = -(-self.store.capacity // max(blk_bytes, 1))
+            pool_blocks = int(min(by_capacity, _DEFAULT_POOL_BLOCKS))
+            pool_blocks += self.B * self.table_width + 1
+        self.pool = KVBlockPool(template, bt, pool_blocks, self.device)
+        # every right-padded / inactive-slot token is scattered into this
+        # reserved row, so real rows only ever see real writes
+        self._junk_row = self.pool.alloc()
+        assert self._junk_row == 0
+        self._tables: List[List[int]] = [[] for _ in range(self.B)]
+        # tables only change on admission/completion, not per decode step —
+        # keep the device copy and re-upload only when dirty
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._tables_dirty = True
+        self.store.evict_payload = self.pool.free
+
+        self._prev_out = torch.zeros((self.B,), dtype=torch.int32,
+                                     device=self.device)
+        self._done_dev = torch.zeros((self.B,), dtype=torch.bool,
+                                     device=self.device)
+        self._rid = itertools.count(1)
+        self.queue: Deque[Request] = deque()
+        self.slots: List[Optional[Request]] = [None] * self.B
+        # ----- front door: step scheduling, admission control, and a
+        # deterministic virtual clock for SLO accounting. The default FCFS
+        # scheduler reproduces the plain step loop exactly.
+        self.scheduler = (make_scheduler(scheduler)
+                          if isinstance(scheduler, str)
+                          else scheduler or Scheduler())
+        self.max_queue = max_queue
+        self.clock = clock or StepCostModel()
+        if getattr(self.scheduler, "clock", False) is None:
+            # cost-aware schedulers price chunks on the engine's own clock
+            self.scheduler.clock = self.clock
+        self.now = 0.0
+        self.eos_interval = max(int(eos_interval), 1)
+        self._fresh_slots: set = set()  # admitted since the last dispatch
+        self.steps = 0
+        self.decoded_tokens = 0
+        self.prefill_tokens = 0
+        self.prefill_tokens_skipped = 0
+        self.transfer_dispatches = 0    # copy-on-write copies
+        self.readback_syncs = 0         # device→host blocking reads
+        self.rejected = 0               # backpressure sheds
+        self.cancellations = 0
+        # obs: an attached ``repro_torch.obs.TraceRecorder`` (None = every
+        # instrumentation site is one predicate)
+        self.trace = None
+        self._trace_pid = 0
+
+    # ------------------------------------------------------------------ obs
+    def attach_trace(self, recorder, pid: int = 0,
+                     name: str = "engine") -> None:
+        """Wire a ``TraceRecorder`` through every layer of this engine:
+        step phases + scheduler decisions + request lifecycle (this
+        class), and store events (the prefix store)."""
+        self.trace = recorder
+        self._trace_pid = pid
+        for tid in (_TID_ENGINE, _TID_SCHED, _TID_STORE, _TID_REQ):
+            recorder.label(pid, name, tid=tid)
+        self.store.trace = recorder
+        self.store.trace_pid = pid
+        recorder.vt = self.now
+
+    def _aid(self, req: "Request") -> str:
+        """Async-track id for a request: pid-qualified."""
+        return f"{self._trace_pid}:{req.rid}"
+
+    def _trace_req_end(self, r: "Request") -> None:
+        """Close a request's lifecycle track with everything
+        ``latency_stats`` needs."""
+        if self.trace is None:
+            return
+        self.trace.end_async(
+            "req", self._aid(r), "request", self._trace_pid, _TID_REQ,
+            args={"rid": r.rid, "arrival": r.arrival, "deadline": r.deadline,
+                  "first_token_at": r.first_token_at,
+                  "finished_at": r.finished_at,
+                  "n_generated": len(r.generated),
+                  "cancelled": r.cancelled,
+                  "prefill_skipped": r.prefill_skipped})
+
+    # ------------------------------------------------------------- requests
+    def submit(self, prompt: Sequence[int], max_new: int = 16, *,
+               deadline: Optional[float] = None,
+               arrival: Optional[float] = None) -> Request:
+        """Enqueue a request. ``deadline`` is an *absolute* TTFT deadline
+        on the engine's virtual clock (None = best-effort); ``arrival``
+        backdates the request. Raises ``QueueFull`` when admission control
+        is on and the queue is at ``max_queue``."""
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self.rejected += 1
+            retry_after = self.retry_after()
+            if self.trace is not None:
+                self.trace.instant(
+                    "rejected", "request", self._trace_pid, _TID_REQ,
+                    args={"queued": len(self.queue),
+                          "retry_after": retry_after})
+            raise QueueFull(f"queue at max_queue={self.max_queue}",
+                            depth=len(self.queue), retry_after=retry_after)
+        req = Request(next(self._rid), list(prompt), max_new,
+                      arrival=self.now if arrival is None else arrival,
+                      deadline=deadline)
+        req.prefix_rid = self.store.register_request(prompt)
+        self.queue.append(req)
+        if self.trace is not None:
+            self.trace.begin_async(
+                "req", self._aid(req), "request", self._trace_pid, _TID_REQ,
+                args={"rid": req.rid, "prompt_tokens": len(req.prompt),
+                      "max_new": req.max_new, "deadline": req.deadline},
+                vt=req.arrival)
+        return req
+
+    def retry_after(self) -> float:
+        """Backpressure hint stamped on ``QueueFull``: the nearest-to-done
+        active request's remaining steps priced by the engine's
+        ``StepCostModel``."""
+        active = [r for r in self.slots if r is not None]
+        per_step = float(self.clock(0, max(len(active), 1), 0))
+        if not active:
+            return per_step
+        steps_left = min(
+            -(-max(len(r.prompt) - r.pos, 0) // self.prefill_chunk)
+            + max(r.max_new - r.n_generated, 0)
+            for r in active)
+        return max(steps_left, 1) * per_step
+
+    def cancel(self, req: Request) -> bool:
+        """Cancel a request at any point in its lifetime — queued,
+        prefilling, or mid-decode. Frees the slot and its block-table rows
+        *immediately*; the store's pending-chain references retire. Tokens
+        already computed remain readable on the returned request. Call
+        between steps."""
+        if req.done:
+            return False
+        req.done = True
+        req.cancelled = True
+        self.cancellations += 1
+        if req.slot >= 0 and self.slots[req.slot] is req:
+            self._release_slot(req)
+        else:
+            try:
+                self.queue.remove(req)
+            except ValueError:
+                pass
+        self.store.complete_request(req.prefix_rid)
+        self._drain(req)
+        req.finished_at = self.now
+        self._trace_req_end(req)
+        return True
+
+    def drain(self, req: Request) -> List[int]:
+        """Streaming read: materialize every token computed so far (one
+        blocking device→host copy) and return the visible generation.
+        With EOS detection on, tokens past the first EOS are not shown."""
+        self._drain(req)
+        gen = req.generated
+        if self.eos_id >= 0 and self.eos_id in gen:
+            gen = gen[:gen.index(self.eos_id) + 1]
+        return list(gen)
+
+    # -------------------------------------------------------- cache plumbing
+    def _block_nbytes(self) -> int:
+        return self.pool.block_nbytes
+
+    def _publish(self, req: Request) -> None:
+        """Prefill complete: publish the prompt's KV chain into the store.
+        The chain's blocks already live in pool rows the slot's block table
+        names — the payload factory hands the store a shared reference to
+        each fresh block's row. Zero copies."""
+        table = self._tables[req.slot]
+        self.store.insert(req.prompt,
+                          lambda i, _node: self.pool.share(table[i]),
+                          self.pool.block_nbytes)
+
+    # ---------------------------------------------------------------- admit
+    def _admit(self) -> None:
+        bt = self.store.block_tokens
+        for i in range(self.B):
+            if self.slots[i] is not None or not self.queue:
+                continue
+            queued = len(self.queue)
+            pick = self.scheduler.admit_idx(self.queue)
+            if pick == 0:
+                req = self.queue.popleft()
+            else:
+                req = self.queue[pick]
+                del self.queue[pick]
+            self._fresh_slots.add(i)
+            usable = self.store.lookup(req.prompt)
+            restored = len(usable) * bt
+            # the last prompt token is always recomputed: its logits seed
+            # generation and were never cached
+            restored = min(restored, len(req.prompt) - 1)
+            # prefix hit = a host-side block-table write: the slot reads
+            # the store's rows in place (refcounted shares)
+            table = [self.pool.share(n.payload) for n in usable]
+            if table and restored < len(table) * bt:
+                # fully-resident chain: the final block must absorb the
+                # recomputed last prompt token — copy-on-write so the
+                # store's row stays pristine
+                priv = self.pool.alloc()
+                self.pool.copy_row(table[-1], priv)
+                self.pool.free(table[-1])
+                table[-1] = priv
+                self.transfer_dispatches += 1
+            # private tail rows for the rest of the prompt + decode
+            horizon = min(len(req.prompt) + req.max_new, self.max_seq)
+            while len(table) * bt < horizon:
+                table.append(self.pool.alloc())
+            self._tables[i] = table
+            self._tables_dirty = True
+            req.slot = i
+            req.pos = restored
+            req.prefill_skipped = restored
+            self.prefill_tokens_skipped += restored
+            self.slots[i] = req
+            if self.trace is not None:
+                self.trace.instant(
+                    "sched.admit", "sched", self._trace_pid, _TID_SCHED,
+                    args={"rid": req.rid, "slot": i, "pick": pick,
+                          "queued": queued, "restored_tokens": restored})
+                self.trace.async_instant(
+                    "req", self._aid(req), "request", self._trace_pid,
+                    _TID_REQ, args={"event": "admitted", "slot": i,
+                                    "restored_tokens": restored})
+
+    # ----------------------------------------------------------------- step
+    def _dispatch(self, tokens: np.ndarray, meta: np.ndarray,
+                  tables: torch.Tensor) -> torch.Tensor:
+        """One batched decode step on the device: route the previous
+        argmax into decode feeds, run the model over the pool (written in
+        place), fold the emitted tokens into the device-side EOS mask.
+        Returns the (B,) argmax tokens, left on the device.
+
+        meta rows: 0 = per-slot position, 1 = real tokens this step,
+        2 = route the previous argmax into column 0 (decode feed),
+        3 = this step's output counts as a generated token (EOS-eligible),
+        4 = clear the slot's done bit (slot re-admitted) — ONE (5, B)
+        host→device upload per step."""
+        t = torch.from_numpy(tokens).to(self.device)
+        meta_d = torch.from_numpy(meta).to(self.device)
+        pos, lens, use_prev = meta_d[0], meta_d[1], meta_d[2].bool()
+        t[:, 0] = torch.where(use_prev, self._prev_out, t[:, 0])
+        logits, _ = lm_decode_step(self.cfg, self.params, self.pool.buffers,
+                                   t, pos, seq_lens=lens,
+                                   paged_tables=tables)
+        out = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        if self.eos_id >= 0:
+            emit, reset = meta_d[3].bool(), meta_d[4].bool()
+            self._done_dev = ((self._done_dev & ~reset)
+                              | (emit & (out == self.eos_id)))
+        return out
+
+    def step(self) -> List[Request]:
+        """One engine iteration. Decode slots pack first (one pipelined
+        token each); the scheduler then divides this step's prefill work —
+        up to ``prefill_chunk`` tokens per prefilling slot under FCFS, a
+        deadline-ordered token budget under the budgeted scheduler — all in
+        a single batched dispatch. Returns requests that finished."""
+        trace = self.trace
+        if trace is None:
+            return self._step_inner(None)
+        trace.vt = self.now
+        with trace.span("step", "engine", self._trace_pid, _TID_ENGINE,
+                        args={"n": self.steps}):
+            return self._step_inner(trace)
+
+    def _step_inner(self, trace) -> List[Request]:
+        pid = self._trace_pid
+        if trace is None:
+            self._admit()
+        else:
+            with trace.span("admit", "engine", pid, _TID_ENGINE):
+                self._admit()
+        active = [r for r in self.slots if r is not None]
+        if not active:
+            return []
+        decoding = [r for r in active if r.pos >= len(r.prompt)]
+        prefilling = [r for r in active if r.pos < len(r.prompt)]
+        plan = self.scheduler.plan_prefill(prefilling, self.prefill_chunk,
+                                           len(decoding))
+        plan = {s: n for s, n in plan.items() if n > 0}
+        if not decoding and not plan and prefilling:
+            # never stall a step that has only prefill work: feed the
+            # scheduler's most urgent slot its chunk
+            r = prefilling[0]
+            plan = {r.slot: min(self.prefill_chunk,
+                                len(r.prompt) - r.pos)}
+        if trace is not None:
+            trace.instant(
+                "sched.plan", "sched", pid, _TID_SCHED,
+                args={"plan": {str(s): n for s, n in plan.items()},
+                      "preempted": [r.rid for r in prefilling
+                                    if r.slot not in plan],
+                      "decoding": len(decoding)})
+        dispatch = (trace.span("dispatch", "engine", pid,
+                               _TID_ENGINE).begin()
+                    if trace is not None else None)
+        feeds: Dict[int, List[int]] = {}
+        use_prev = np.zeros((self.B,), bool)
+        for r in decoding:
+            # the feed is the previous step's argmax for this slot —
+            # routed on device, never synced to host
+            feeds[r.slot] = [0]
+            use_prev[r.slot] = True
+            self.decoded_tokens += 1
+        for r in prefilling:
+            n = plan.get(r.slot, 0)
+            if n:                      # preempted slots idle this step
+                feeds[r.slot] = r.prompt[r.pos:r.pos + n]
+                self.prefill_tokens += n
+        fed = [r for r in active if r.slot in feeds]
+        S = max(len(f) for f in feeds.values())
+        tokens = np.zeros((self.B, S), np.int32)
+        # meta rows: pos / lens / use_prev / emits-generated / reset-done
+        meta = np.zeros((5, self.B), np.int32)
+        meta[2] = use_prev
+        for r in fed:
+            f = feeds[r.slot]
+            tokens[r.slot, :len(f)] = f
+            meta[0, r.slot] = r.pos
+            meta[1, r.slot] = len(f)
+            meta[3, r.slot] = r.pos + len(f) >= len(r.prompt)
+        for i in self._fresh_slots:
+            meta[4, i] = 1
+        self._fresh_slots.clear()
+        if self._tables_dirty:
+            # attention costs scale with the widest ACTIVE table, not
+            # max_seq. Bucketed to multiples of 4 so the table widths the
+            # kernel sees stay few.
+            nw = max((len(t) for t in self._tables), default=1)
+            nw = min(self.table_width, max(-(-max(nw, 1) // 4) * 4, 4))
+            tables = np.zeros((self.B, nw), np.int32)
+            for r in active:
+                tab = self._tables[r.slot]
+                tables[r.slot, :len(tab)] = tab
+            self._tables_dev = torch.from_numpy(tables).to(self.device)
+            self._tables_dirty = False
+        out_tok = self._dispatch(tokens, meta, self._tables_dev)
+        self._prev_out = out_tok
+        if dispatch is not None:
+            dispatch.end(args={"S": S, "fed": len(fed),
+                               "decoding": len(decoding)})
+        self.steps += 1
+        # prefill attention reads this step: a prompt chunk of ``lens``
+        # tokens attends over a context ending at pos + lens
+        pre = (meta[2] == 0) & (meta[1] > 0)
+        attn_pairs = int((meta[1] * (meta[0] + meta[1]) * pre).sum())
+        self.now += float(self.clock(int(meta[1].sum()) - len(decoding),
+                                     len(decoding), attn_pairs))
+        if trace is not None:
+            trace.vt = self.now
+            trace.counter("engine", pid, {
+                "queue": len(self.queue),
+                "active_slots": sum(s is not None for s in self.slots),
+                "pool_blocks_in_use": self.pool.blocks_in_use,
+                "store_used_bytes": self.store.used})
+
+        finished: List[Request] = []
+        for r in fed:
+            r.pos += len(feeds[r.slot])
+            in_decode = r.pos >= len(r.prompt)
+            if in_decode:
+                r.n_generated += 1
+                r._lazy_out.append(out_tok)
+                if r.n_generated == 1:
+                    r.first_token_at = self.now
+                    if trace is not None:
+                        trace.async_instant(
+                            "req", self._aid(r), "request", pid, _TID_REQ,
+                            args={"event": "first_token"})
+            if r.pos == len(r.prompt):
+                self._publish(r)
+            if in_decode and r.n_generated >= r.max_new:
+                self._finish(r)
+                finished.append(r)
+        if self.eos_id >= 0 and decoding \
+                and self.steps % self.eos_interval == 0:
+            # device-side EOS detection: one (B,) bool copy per interval
+            # instead of the whole token vector every step. A slot that hit
+            # EOS between checks decoded a few garbage tokens past it —
+            # _finish truncates them — in exchange for pipelined steps.
+            if trace is None:
+                done = self._done_dev.cpu().numpy()
+            else:
+                with trace.span("eos_sync", "engine", pid, _TID_ENGINE):
+                    done = self._done_dev.cpu().numpy()
+            self.readback_syncs += 1
+            for r in decoding:
+                if not r.done and done[r.slot]:
+                    self._finish(r)
+                    finished.append(r)
+        return finished
+
+    def _finish(self, r: Request) -> None:
+        """Complete a request: drain pipelined tokens, truncate at the
+        first EOS, retire the store chain, release the slot."""
+        self._drain(r)
+        if self.eos_id >= 0 and self.eos_id in r.generated:
+            r.generated = r.generated[:r.generated.index(self.eos_id) + 1]
+        r.n_generated = len(r.generated)
+        r.done = True
+        r.finished_at = self.now
+        self.store.complete_request(r.prefix_rid)
+        self._release_slot(r)
+        self._trace_req_end(r)
+
+    def _release_slot(self, r: Request) -> None:
+        """Free a slot's engine-side resources *now* (finish or cancel):
+        every block-table row drops the slot's reference — private tail
+        rows return to the pool immediately, store-shared rows survive on
+        the store's own reference."""
+        for idx in self._tables[r.slot]:
+            self.pool.free(idx)
+        self._tables[r.slot] = []
+        self._tables_dirty = True
+        self.slots[r.slot] = None
+
+    def _drain(self, r: Request) -> None:
+        """Drain a request's pipelined token reads into ``generated`` (one
+        blocking device→host copy for all of them)."""
+        if r._lazy_out:
+            if self.trace is None:
+                vals = torch.stack(r._lazy_out).cpu().numpy()
+            else:
+                with self.trace.span("readback", "engine", self._trace_pid,
+                                     _TID_ENGINE,
+                                     args={"steps": len(r._lazy_out),
+                                           "rid": r.rid}):
+                    vals = torch.stack(r._lazy_out).cpu().numpy()
+            r.generated.extend(int(v[r.slot]) for v in vals)
+            r._lazy_out = []
+            self.readback_syncs += 1
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.queue and all(s is None for s in self.slots):
+                return
+            self.step()
+
+    def step_hlo(self) -> str:
+        raise NotImplementedError(
+            "step_hlo exposes the reference's compiled XLA step; the port "
+            "runs eagerly and has no counterpart")
+
+    # -------------------------------------------------------------- metrics
+    def metrics(self) -> Dict[str, float]:
+        m = dict(self.store.metrics())
+        m.update({
+            "engine_steps": self.steps,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_tokens_skipped": self.prefill_tokens_skipped,
+            "decoded_tokens": self.decoded_tokens,
+            "pool_blocks": self.pool.num_blocks,
+            "pool_blocks_in_use": self.pool.blocks_in_use,
+            "pool_high_water": self.pool.high_water,
+            "kv_transfer_dispatches": self.transfer_dispatches,
+            "readback_syncs": self.readback_syncs,
+            "virtual_time": self.now,
+            "rejected": self.rejected,
+            "cancellations": self.cancellations,
+            "host_syncs_avoided": max(self.steps - self.readback_syncs, 0),
+            # per-device vs global KV bytes; equal at tp=1, the only
+            # ported layout
+            "serve_tp": self.tp,
+            "device_kv_bytes": self.pool.nbytes,
+            "kv_bytes_global": self.pool.nbytes,
+            "prefill_saved_frac": (
+                self.prefill_tokens_skipped
+                / max(self.prefill_tokens + self.prefill_tokens_skipped, 1)),
+        })
+        return m

@@ -1,0 +1,219 @@
+"""The port's paged ServeEngine (on the CPU) against the reference's
+``ServeEngine(paged=True)`` on the qwen2-7b smoke config in f32, with the
+reference's weights carried over by the bridge.
+
+The workload is ``tests/test_engine_equivalence.py``'s (shared-prefix,
+uniform lengths, byte pressure) with its duplicate of the first prompt
+appended, and a duplicate of the last, whose chain is still resident when
+it arrives: the copy-on-write path runs under every policy. Both engines
+must give identical generated tokens, a bit-identical eviction log,
+identical ERC counters, prefix reuse, step counts and ``metrics()``; the
+port's pool must hold exactly the store's resident rows plus the junk row
+afterwards. The launcher must print what the reference launcher prints."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.launch.serve import serve_main as jax_serve_main  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import model_spec as jax_model_spec  # noqa: E402
+from repro.serve import PrefixStore as JaxStore  # noqa: E402
+from repro.serve import ServeEngine as JaxEngine  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.serve import serve_main  # noqa: E402
+from repro_torch.models import params_from_numpy  # noqa: E402
+from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
+
+BT = 8          # block_tokens
+PROMPT = 32     # uniform prompt length (4 blocks)
+MAX_NEW = 4
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jax_configs.get("qwen2_7b", smoke=True).replace(dtype=jnp.float32)
+    tcfg = configs.get("qwen2_7b", smoke=True).replace(dtype=torch.float32)
+    jparams = jax_init_params(jax.random.key(0), jax_model_spec(jcfg),
+                              dtype=jnp.float32)
+    return jcfg, tcfg, jparams, params_from_numpy(jax.device_get(jparams))
+
+
+def workload(vocab, n_requests=8, n_families=3, seed=7):
+    """Shared-prefix requests with uniform lengths, plus duplicates of the
+    first and the last (a full-chain hit -> copy-on-write)."""
+    rng = np.random.default_rng(seed)
+    prefixes = [list(rng.integers(0, vocab, PROMPT - BT))
+                for _ in range(n_families)]
+    reqs = [prefixes[i % n_families] + list(rng.integers(0, vocab, BT))
+            for i in range(n_requests)]
+    return reqs + [list(reqs[0]), list(reqs[-1])]
+
+
+def _engine(engine_cls, store_cls, cfg, params, policy, chunk, scheduler,
+            **kw):
+    probe = engine_cls(cfg, params, max_slots=2, max_seq=64,
+                       store=store_cls(1 << 30, "lerc", block_tokens=BT),
+                       pool_blocks=1, **kw)
+    cap = probe._block_nbytes() * 10            # < working set -> evictions
+    st = store_cls(cap, policy, block_tokens=BT)
+    eng = engine_cls(cfg, params, max_slots=2, max_seq=64, store=st,
+                     prefill_chunk=chunk, paged=True, scheduler=scheduler,
+                     **kw)
+    return eng, st
+
+
+def _run(engine_cls, store_cls, cfg, params, policy, chunk, scheduler,
+         max_new=MAX_NEW, **kw):
+    eng, st = _engine(engine_cls, store_cls, cfg, params, policy, chunk,
+                      scheduler, **kw)
+    rs = [eng.submit(r, max_new=max_new) for r in workload(cfg.vocab)]
+    eng.run()
+    return eng, st, rs
+
+
+def _assert_same(model, policy, chunk, scheduler=None):
+    jcfg, tcfg, jparams, tparams = model
+    jeng, jst, jrs = _run(JaxEngine, JaxStore, jcfg, jparams, policy, chunk,
+                          scheduler)
+    teng, tst, trs = _run(ServeEngine, PrefixStore, tcfg, tparams, policy,
+                          chunk, scheduler, device="cpu")
+    assert jst.evictions > 0, "workload produced no pressure"
+    assert jeng.transfer_dispatches > 0, "copy-on-write path not taken"
+    assert [r.generated for r in trs] == [r.generated for r in jrs]
+    assert tst.eviction_log == jst.eviction_log
+    assert [r.prefill_skipped for r in trs] == \
+        [r.prefill_skipped for r in jrs]
+    assert tst.state.ref_count == jst.state.ref_count
+    assert tst.state.eff_ref_count == jst.state.eff_ref_count
+    assert teng.steps == jeng.steps
+    assert teng.transfer_dispatches == jeng.transfer_dispatches
+    assert teng.metrics() == jeng.metrics()
+    assert teng.pool.blocks_in_use == \
+        sum(1 for n in tst._nodes.values() if n.resident) + 1  # junk row
+
+
+@pytest.mark.parametrize("policy", ["lru", "lrc", "lerc"])
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_paged_engine_matches_reference(model, policy, chunk):
+    _assert_same(model, policy, chunk)
+
+
+def test_budgeted_scheduler_matches_reference(model):
+    _assert_same(model, "lerc", 8, scheduler="budgeted")
+
+
+def test_launcher_prints_reference_metrics(capsys):
+    """Same flags, same printed metrics, key for key and value for value:
+    the store and engine counters do not depend on the weights."""
+    args = ["--arch", "qwen2_7b", "--smoke", "--requests", "4", "--slots",
+            "2", "--max-seq", "32", "--shared-prefix", "16", "--max-new",
+            "2", "--cache-kb", "8", "--block-tokens", "4"]
+
+    def metric_lines():
+        return [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("  ")]
+
+    assert jax_serve_main(args) == 0
+    ref = metric_lines()
+    assert serve_main(args + ["--device", "cpu"]) == 0
+    got = metric_lines()
+    assert [ln.split()[0] for ln in got] == [ln.split()[0] for ln in ref]
+    assert got == ref
+
+
+def test_scheduled_fcfs_matches_reference_run_loop(model):
+    """The front door on the port's engine: driven through ``play_trace``
+    under an explicit FCFS scheduler (all arrivals at t=0), it must give
+    the reference's plain run loop, token for token and eviction for
+    eviction."""
+    from repro_torch.serve import FCFSScheduler, TracedRequest, play_trace
+
+    jcfg, tcfg, jparams, tparams = model
+    jeng, jst, jrs = _run(JaxEngine, JaxStore, jcfg, jparams, "lerc", 8,
+                          None)
+    st = PrefixStore(jst.capacity, "lerc", block_tokens=BT)
+    eng = ServeEngine(tcfg, tparams, max_slots=2, max_seq=64, store=st,
+                      prefill_chunk=8, paged=True, scheduler=FCFSScheduler(),
+                      device="cpu")
+    trace = [TracedRequest(t=0.0, prompt=r, max_new=MAX_NEW)
+             for r in workload(tcfg.vocab)]
+    report = play_trace(eng, trace)
+    assert [r.generated for r in report.requests] == \
+        [r.generated for r in jrs]
+    assert st.eviction_log == jst.eviction_log
+    assert [r.prefill_skipped for r in report.requests] == \
+        [r.prefill_skipped for r in jrs]
+    assert eng.steps == jeng.steps
+
+
+def test_cancel_and_drain_match_reference(model):
+    """Mid-run streaming reads and cancellations (one request mid-prefill
+    or decode, one still queued) leave both engines with the same tokens,
+    evictions and metrics."""
+    jcfg, tcfg, jparams, tparams = model
+    out = []
+    for cls, store_cls, cfg, params, kw in (
+            (JaxEngine, JaxStore, jcfg, jparams, {}),
+            (ServeEngine, PrefixStore, tcfg, tparams, {"device": "cpu"})):
+        eng, st = _engine(cls, store_cls, cfg, params, "lerc", 8, None, **kw)
+        rs = [eng.submit(r, max_new=MAX_NEW) for r in workload(cfg.vocab)]
+        for _ in range(5):
+            eng.step()
+        streamed = eng.drain(rs[0])
+        assert eng.cancel(rs[1]) and eng.cancel(rs[-1])
+        assert not eng.cancel(rs[-1])              # already done
+        eng.run()
+        out.append((streamed, [r.generated for r in rs],
+                    [r.cancelled for r in rs], st.eviction_log,
+                    eng.metrics()))
+    assert out[1] == out[0]
+    assert out[0][4]["cancellations"] == 2
+
+
+def test_eos_detection_matches_reference(model):
+    """Device-side EOS: with an EOS id the workload really emits early in
+    long generations, synced every 3 steps, both engines stop the same
+    requests at the same step and token, with the same readback counts."""
+    jcfg, tcfg, jparams, tparams = model
+    max_new = 12
+    _, _, plain = _run(JaxEngine, JaxStore, jcfg, jparams, "lerc", 8, None,
+                       max_new=max_new)
+    eos = plain[2].generated[1]
+    kw = dict(eos_id=eos, eos_interval=3, max_new=max_new)
+    jeng, jst, jrs = _run(JaxEngine, JaxStore, jcfg, jparams, "lerc", 8,
+                          None, **kw)
+    teng, tst, trs = _run(ServeEngine, PrefixStore, tcfg, tparams, "lerc", 8,
+                          None, device="cpu", **kw)
+    assert any(len(r.generated) < max_new - 3 for r in jrs), "no EOS hit"
+    assert [r.generated for r in trs] == [r.generated for r in jrs]
+    assert tst.eviction_log == jst.eviction_log
+    assert teng.metrics() == jeng.metrics()
+
+
+def test_trace_events_match_reference(model):
+    """The port's engine emits the reference's trace: the same events, in
+    the same order, with the same virtual times and arguments (only the
+    wall clock differs)."""
+    from repro.obs import TraceRecorder as JaxRecorder
+    from repro_torch.obs import TraceRecorder
+
+    jcfg, tcfg, jparams, tparams = model
+    traces = []
+    for cls, store_cls, cfg, params, rec, kw in (
+            (JaxEngine, JaxStore, jcfg, jparams, JaxRecorder(), {}),
+            (ServeEngine, PrefixStore, tcfg, tparams, TraceRecorder(),
+             {"device": "cpu"})):
+        eng, _ = _engine(cls, store_cls, cfg, params, "lerc", 8, None, **kw)
+        eng.attach_trace(rec)
+        for r in workload(cfg.vocab):
+            eng.submit(r, max_new=MAX_NEW)
+        eng.run()
+        traces.append([{k: v for k, v in ev.items()
+                        if k not in ("wall", "dur_wall")}
+                       for ev in rec.events])
+    assert len(traces[0]) > 100
+    assert traces[1] == traces[0]

@@ -1,0 +1,104 @@
+"""The port stands alone and runs where it is told: no file of
+``src/repro_torch/`` (nor ``chip_smoke.py``) imports JAX or ``repro``,
+importing the package pulls neither in, entry points default to the GPU
+and raise without one, and the configs equal the reference's."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.models import model_spec as jax_model_spec  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import model_spec  # noqa: E402
+from repro_torch.models.common import tree_paths  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert files, "no port sources found"
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax_or_reference():
+    bad = {f"{p.relative_to(ROOT)}: {m}" for p in _port_files()
+           for m in _imported_roots(p) if m in FORBIDDEN}
+    assert not bad, sorted(bad)
+
+
+def test_importing_port_loads_no_jax_or_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_default_to_the_gpu():
+    """No device means the card: without one the engine and the launcher
+    raise instead of carrying on on the CPU."""
+    from repro_torch.launch.serve import serve_main
+    from repro_torch.serve import ServeEngine, resolve_device
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    cfg = configs.get("qwen2_7b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, {}, max_slots=1, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(["--arch", "qwen2_7b", "--smoke"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_configs_equal_reference(smoke):
+    ref = jax_configs.get("qwen2-7b", smoke=smoke)
+    port = configs.get("qwen2-7b", smoke=smoke)
+    for f in dataclasses.fields(ref):
+        if f.name != "dtype":
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert ref.dtype == jnp.bfloat16 and port.dtype == torch.bfloat16
+    assert configs.canonical("qwen2.7b") == "qwen2_7b"
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_param_spec_tree_equals_reference(smoke):
+    """Same names, shapes, axes and init rules as the reference's tree,
+    the stacked ``stack/0_G`` layer axis included."""
+    ref = dict(tree_paths(jax_model_spec(jax_configs.get("qwen2_7b",
+                                                         smoke=smoke))))
+    port = dict(tree_paths(model_spec(configs.get("qwen2_7b", smoke=smoke))))
+    assert port.keys() == ref.keys()
+    for path, s in ref.items():
+        q = port[path]
+        assert (q.shape, q.axes, q.init, q.scale) == \
+            (s.shape, s.axes, s.init, s.scale), path
+    if not smoke:
+        assert port[("stack", "0_G", "mlp", "wi")].shape == \
+            (28, 3584, 2, 18944)
