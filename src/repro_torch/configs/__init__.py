@@ -12,6 +12,7 @@ import importlib
 from ..models.common import ModelConfig
 
 ARCH_IDS = [
+    "gemma2_27b",
     "qwen2_7b",
 ]
 

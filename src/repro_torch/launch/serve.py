@@ -1,14 +1,18 @@
-"""Serving entry point: continuous batching + LERC prefix cache on the
-paged KV pool; mirrors ``src/repro/launch/serve.py`` for the planes the
-port has (single shard, single tier, tp=1, batch submit-then-run loop).
+"""Serving entry point: continuous batching + LERC prefix cache; mirrors
+``src/repro/launch/serve.py`` for the planes the port has (single shard,
+single tier, tp=1, batch submit-then-run loop).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 16 --slots 8 --max-seq 640 --shared-prefix 512 \\
       --prefill-chunk 64 --block-tokens 16
 
-Runs on the GPU unless ``--device cpu`` asks for the CPU (where the paged
-attention runs its plain version); without a GPU the default raises.
-Weights are seeded random (``--seed``), made by the port's own init.
+The paged plane is the default for global-attention patterns and
+``--no-paged-attention`` forces the gather plane; patterns with rolling-
+window layers (gemma2's "LG") run the gather plane with ``--prefill-chunk``
+clamped to 1. Runs on the GPU unless ``--device cpu`` asks for the CPU
+(where the attention kernels run their plain versions); without a GPU the
+default raises. Weights are seeded random (``--seed``), made by the port's
+own init.
 """
 from __future__ import annotations
 
@@ -44,6 +48,16 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="prompt tokens per slot per engine step")
+    ap.add_argument("--paged-attention", dest="paged", action="store_true",
+                    default=None,
+                    help="decode straight out of the KV pool via per-slot "
+                         "block tables: hits are host-side table writes, "
+                         "publish transfers row ownership, no per-slot "
+                         "contiguous KV cache (default: on for uniform "
+                         "global-attention patterns)")
+    ap.add_argument("--no-paged-attention", dest="paged",
+                    action="store_false",
+                    help="force the gather/scatter data plane")
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="device KV pool size in blocks "
                          "(default: sized to --cache-kb)")
@@ -77,6 +91,17 @@ def serve_main(argv=None) -> int:
     cfg = configs.get(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(model_spec(cfg), gen, device, dtype=cfg.dtype)
+    absolute_kv = set(cfg.layer_pattern) <= {"G", "M"}
+    if args.paged is None:
+        # zero-copy paged attention is the default wherever the KV layout
+        # supports it (absolute positions); the engine itself falls back
+        # to the gather plane — with a warning — if asked for more
+        args.paged = absolute_kv
+    if args.prefill_chunk > 1 and not absolute_kv:
+        print(f"warning: pattern {cfg.layer_pattern!r} has rolling/"
+              "recurrent layers; clamping --prefill-chunk to 1",
+              file=sys.stderr)
+        args.prefill_chunk = 1
     scheduler = (BudgetedScheduler(args.prefill_budget)
                  if args.scheduler == "budgeted" else args.scheduler)
     store = PrefixStore(capacity_bytes=args.cache_kb * 1024,
@@ -84,7 +109,7 @@ def serve_main(argv=None) -> int:
     eng = ServeEngine(cfg, params, max_slots=args.slots,
                       max_seq=args.max_seq, store=store,
                       prefill_chunk=args.prefill_chunk,
-                      pool_blocks=args.pool_blocks, paged=True,
+                      pool_blocks=args.pool_blocks, paged=args.paged,
                       scheduler=scheduler, device=device)
 
     recorder = None
@@ -106,7 +131,8 @@ def serve_main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     m = eng.metrics()
-    print(f"policy={args.policy}  shards=1  tp=1  paged=on  "
+    print(f"policy={args.policy}  shards=1  tp=1  "
+          f"paged={'on' if eng.paged else 'off'}  "
           f"scheduler={args.scheduler}  device={device}  "
           f"wall={time.time()-t0:.1f}s")
     for k, v in m.items():

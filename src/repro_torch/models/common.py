@@ -45,8 +45,9 @@ class ModelConfig:
     attn_q_chunk: int = 2048        # chunked-attention tile sizes
     attn_kv_chunk: int = 2048
     exact_causal: bool = True       # prune upper-triangle chunks
-    decode_kernel: str = "auto"     # paged-attention backend: "flash" (the
-                                    # CUDA kernel; its plain version on CPU
+    decode_kernel: str = "auto"     # decode-attention backend (paged and
+                                    # gather planes): "flash" (the CUDA
+                                    # kernel; its plain version on CPU
                                     # tensors), "xla" (the plain version),
                                     # "auto" (kernel on CUDA, plain on CPU)
     # --- MLP / MoE ----------------------------------------------------------

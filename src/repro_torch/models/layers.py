@@ -1,11 +1,12 @@
-"""Shared layers: norms, RoPE, embeddings, the paged attention layer and
-the MLP; mirrors ``src/repro/models/layers.py``. Plain functions over
-param dicts of tensors; fp32 where numerics demand it (norms, softmax,
-rope), the model dtype elsewhere.
+"""Shared layers: norms, RoPE, embeddings, the decode modes of the
+attention layer and the MLP; mirrors ``src/repro/models/layers.py``. Plain
+functions over param dicts of tensors; fp32 where numerics demand it
+(norms, softmax, rope), the model dtype elsewhere.
 
-Ported so far: the dense layers and the paged decode mode of
-``attention`` (chunk written into pool rows, attention out of the pool).
-The gather-plane, training and cross-attention modes are not ported yet.
+Ported so far: the dense layers and the decode modes of ``attention``:
+paged (chunk written into pool rows, attention out of the pool), and the
+gather plane's per-slot and bulk modes over contiguous caches. The
+training and cross-attention modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import paged_attention_plain, paged_decode_attention
+from ..kernels import (decode_attention, decode_attention_plain,
+                       paged_attention_plain, paged_decode_attention)
 from .common import ModelConfig, p
 
 # ---------------------------------------------------------------------------
@@ -108,6 +110,37 @@ def _qkv(cfg: ModelConfig, params, xq, xkv):
     return q, k, v
 
 
+def _sdpa(cfg: ModelConfig, q, k, v, mask):
+    """q: (B,Sq,H,D); k,v: (B,Skv,KV,D); mask: (B|1, 1, Sq, Skv) bool.
+    Dense fp32 masked softmax; the probabilities are cast to v's dtype
+    before PV, as the reference does."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(D)
+    if cfg.attn_logit_softcap:
+        c = cfg.attn_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    logits = torch.where(mask[:, :, None] if mask.ndim == 4 else mask,
+                         logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def causal_mask(Sq: int, Skv: int, q_offset=0, window: Optional[int] = None,
+                device=None):
+    """(1,1,Sq,Skv) bool. ``q_offset``: absolute position of query 0.
+    ``window``: sliding window (local attention)."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
 def _paged_attention(cfg: ModelConfig, q, k_pages, v_pages, tables, qpos):
     """Attention for a (B,Sq,H,D) query chunk straight out of KV pool
     pages (num_blocks, bt, KV, D); block ``i`` of ``tables[b]`` backs
@@ -145,20 +178,96 @@ def _paged_write_attend(cfg: ModelConfig, q, k, v, kp, vp, tables, lens,
     return out, kp, vp
 
 
+def _write_per_slot(cache, tpos, val) -> None:
+    """``cache[b, tpos[b, j]] = val[b, j]`` in place, for a (B, S, KV, D)
+    cache and (B, Sq) positions. A position past the cache's end is
+    dropped, as the reference's scatter drops it, and without a host sync:
+    such a write is aimed at the last slot carrying the value that slot
+    ends up holding anyway (the chunk's own write there, else its old
+    contents), so the duplicate indices all agree."""
+    B, Sq = tpos.shape
+    last = cache.shape[1] - 1
+    rows = torch.arange(B, device=cache.device)
+    j = (last - tpos[:, 0]).clamp(0, Sq - 1).long()
+    ends_there = tpos[rows, j] == last
+    final = torch.where(ends_there[:, None, None], val[rows, j],
+                        cache[rows, last])
+    val = torch.where((tpos > last)[:, :, None, None], final[:, None], val)
+    cache.index_put_((rows[:, None].expand(B, Sq),
+                      tpos.clamp(max=last).long()), val)
+
+
+def _write_bulk(cache, start, val) -> None:
+    """``cache[:, start:start+Sq] = val`` in place, with the start clamped
+    so the chunk fits, as the reference's ``dynamic_update_slice`` clamps
+    it."""
+    Sq = val.shape[1]
+    s0 = min(max(int(start), 0), cache.shape[1] - Sq)
+    cache[:, s0:s0 + Sq] = val
+
+
 def attention(cfg: ModelConfig, params, x, *, positions, cache: Dict,
-              cache_pos, paged: Dict):
-    """Attention layer (proj → rope → paged write+attend → proj) in the
-    paged decode mode, the one mode ported: ``cache`` = {"k","v"} per-layer
-    KV *pool* views (num_blocks, bt, KV, D), updated in place, and
-    ``paged`` = {"tables": (B, NW) pool rows in chain order, "seq_lens":
-    (B,) real tokens per row}. Absolute positions only (G layers).
-    Returns (out, cache)."""
+              cache_pos, cache_valid_len=None,
+              paged: Optional[Dict] = None):
+    """Attention layer (proj → rope → write + attend → proj) in its decode
+    modes; the caches are written IN PLACE (the reference returns new
+    ones). Returns (out, cache).
+
+      * paged: ``cache`` = {"k","v"} per-layer KV *pool* views
+        (num_blocks, bt, KV, D) and ``paged`` = {"tables": (B, NW) pool
+        rows in chain order, "seq_lens": (B,) real tokens per row}.
+        Absolute positions only (G layers).
+      * gather: ``cache`` = {"k","v"} (B, S_cache, KV, D); the chunk is
+        written at slot ``cache_pos`` — (B,) per slot (continuous
+        batching) or one shared scalar (bulk) — and query token j attends
+        the first ``cache_valid_len + j`` slots (``cache_pos + 1 + j`` by
+        default). Rolling (L) caches pass ``pos % window`` and
+        ``min(pos + 1, window)``: the whole wrapped buffer is live and
+        slot order is irrelevant.
+
+    A one-token decode attends through ``decode_attention`` (the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors), or with
+    ``decode_kernel == "xla"`` through the plain version itself, as the
+    paged mode does; a longer chunk through ``_sdpa``. (The reference's
+    "xla" route is ``_sdpa``, which casts the probabilities to v's dtype:
+    in bf16 it parts from the kernel there.)"""
+    B, Sq = x.shape[:2]
     q, k, v = _qkv(cfg, params, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out, ck, cv = _paged_write_attend(cfg, q, k, v, cache["k"], cache["v"],
-                                      paged["tables"], paged["seq_lens"],
-                                      cache_pos)
+    if paged is not None:
+        out, ck, cv = _paged_write_attend(cfg, q, k, v, cache["k"],
+                                          cache["v"], paged["tables"],
+                                          paged["seq_lens"], cache_pos)
+        return (torch.einsum("bshk,hkd->bsd", out, params["wo"]),
+                {"k": ck, "v": cv})
+    ck, cv = cache["k"], cache["v"]
+    base = cache_pos + 1 if cache_valid_len is None else cache_valid_len
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1:
+        # per-slot positions: each slot writes its chunk at its own offset
+        tpos = (cache_pos[:, None].int()
+                + torch.arange(Sq, dtype=torch.int32,
+                               device=x.device)[None, :])           # (B,Sq)
+        _write_per_slot(ck, tpos, k.to(ck.dtype))
+        _write_per_slot(cv, tpos, v.to(cv.dtype))
+        valid = base.int()
+    else:
+        # bulk decode: one shared position
+        _write_bulk(ck, cache_pos, k.to(ck.dtype))
+        _write_bulk(cv, cache_pos, v.to(cv.dtype))
+        valid = torch.full((B,), int(base), dtype=torch.int32,
+                           device=x.device)
+    if Sq == 1:
+        attend = (decode_attention_plain if cfg.decode_kernel == "xla"
+                  else decode_attention)
+        out = attend(q[:, 0], ck, cv, valid,
+                     softcap=cfg.attn_logit_softcap)[:, None]
+    else:
+        # query token j sees j more slots than the chunk's first
+        seen = valid[:, None] + torch.arange(Sq, device=x.device)[None, :]
+        kpos = torch.arange(ck.shape[1], device=x.device)
+        mask = (kpos[None, None, :] < seen[:, :, None])[:, None]
+        out = _sdpa(cfg, q, ck, cv, mask)
     return (torch.einsum("bshk,hkd->bsd", out, params["wo"]),
             {"k": ck, "v": cv})
 

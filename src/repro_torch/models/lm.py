@@ -7,9 +7,10 @@ each unit are stacked with a leading repeat axis (``params["stack"]
 explicit tail, exactly as in the reference's parameter tree. Where the
 reference scans over the repeat axis, the port loops over it.
 
-Ported so far: the paged decode step for G (global attention + dense
-MLP) layers. Other layer kinds and the training forward raise
-``NotImplementedError``.
+Layer kinds ported so far: G (global attention + dense MLP) and L (local,
+rolling-window attention + dense MLP), through the decode step on both
+data planes: paged (G only) and gather. The M/R/W kinds and the training
+forward raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .common import ModelConfig, ParamSpec, tree_map
 
 
 def _sublayer_spec(cfg: ModelConfig, kind: str) -> Dict:
-    if kind != "G":
+    if kind not in ("G", "L"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     d_ff = None
     if kind == "G" and cfg.n_experts and cfg.dense_d_ff:
@@ -81,12 +82,13 @@ def _unit_keys(pat: str) -> List[str]:
 
 
 def _apply_sublayer(cfg: ModelConfig, prm, h, *, positions, cache,
-                    cache_pos, paged):
-    """One G sublayer on the paged plane; the layer's pool pages in
-    ``cache`` are written in place. Returns h."""
+                    cache_pos, cache_valid_len, paged):
+    """One G or L sublayer in decode; the layer's cache (or pool pages)
+    in ``cache`` is written in place. Returns h."""
     x = L.norm(cfg, prm["ln1"], h)
     attn_out, _ = L.attention(cfg, prm["attn"], x, positions=positions,
-                              cache=cache, cache_pos=cache_pos, paged=paged)
+                              cache=cache, cache_pos=cache_pos,
+                              cache_valid_len=cache_valid_len, paged=paged)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
@@ -103,15 +105,20 @@ def _apply_sublayer(cfg: ModelConfig, prm, h, *, positions, cache,
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
     """Cache layout mirroring the param stacking: stacked leading repeat
-    axis for the unit, explicit entries for the tail. G layers only."""
+    axis for the unit, explicit entries for the tail. G and L layers (an L
+    cache is a rolling window, ``min(window, max_seq)`` slots wide)."""
     pat, n_rep, tail = unit_pattern(cfg)
 
     def sub_shapes(kind: str):
-        if kind != "G":
-            raise NotImplementedError(
-                f"layer kind {kind!r} has no ported decode cache")
-        s = (batch, max_seq, cfg.kv_heads, cfg.d_head)
-        return {"k": s, "v": s}
+        if kind == "G":
+            s = (batch, max_seq, cfg.kv_heads, cfg.d_head)
+            return {"k": s, "v": s}
+        if kind == "L":
+            w = min(cfg.window or max_seq, max_seq)
+            s = (batch, w, cfg.kv_heads, cfg.d_head)
+            return {"k": s, "v": s}
+        raise NotImplementedError(
+            f"layer kind {kind!r} has no ported decode cache")
 
     out: Dict[str, Any] = {"stack": {}}
     for key in _unit_keys(pat):
@@ -124,49 +131,84 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                   seq_lens, paged_tables):
-    """One paged decode step over a chunk of S tokens per row. tokens:
-    (B,S); pos: (B,) int32 per-slot start positions; ``seq_lens`` (B,) the
-    number of *real* tokens per row (rows are right-padded to S);
-    ``paged_tables`` (B, NW) int32 pool rows in chain order.
+                   seq_lens=None, paged_tables=None):
+    """One decode step over a chunk of S tokens per row. tokens: (B,S);
+    pos: (B,) int32 per-slot start positions (continuous batching), or one
+    int shared by every row (bulk decode). For L layers the cache is a
+    rolling window written at ``pos % window``.
 
-    ``cache`` is the KV *pool* tree (leaves (*lead, num_blocks, bt, KV,
-    D)); row b's chunk is written into — and attended out of — the pool
-    rows its block table names, in place. Only the paged plane of G
-    layers is ported: other layer kinds raise, as the reference's paged
-    decode does for rolling/recurrent ones.
+    ``seq_lens`` (B,) gives the number of *real* tokens per row (rows are
+    right-padded to S); the logits returned are those of each row's last
+    real token. Without ``seq_lens`` the last column is used.
 
-    Returns (logits (B,1,vocab) of each row's last real token, cache)."""
+    Gather plane (no ``paged_tables``): ``cache`` is the per-slot
+    contiguous KV tree (leaves (*lead, B, S_cache, KV, D)). Paged plane
+    (``paged_tables`` (B, NW) int32, with per-slot ``pos`` and
+    ``seq_lens``): ``cache`` is the KV *pool* tree (leaves (*lead,
+    num_blocks, bt, KV, D)) and row b's chunk is written into — and
+    attended out of — the pool rows its block table names. Chunks (S > 1)
+    and the paged plane need absolute-position caches (G layers). Either
+    way the cache is written in place.
+
+    Returns (logits (B,1,vocab), cache)."""
     pat, n_rep, tail = unit_pattern(cfg)
     B, S = tokens.shape
-    unsupported = set(pat + tail) - {"G"}
-    if unsupported:
+    unported = set(pat + tail) - {"G", "L"}
+    if unported:
         raise NotImplementedError(
-            "the port's paged decode covers global-attention (G) layers; "
-            f"layer kinds {sorted(unsupported)} are not ported")
-    if paged_tables is None or seq_lens is None or pos.ndim != 1:
-        raise NotImplementedError(
-            "only the paged plane is ported: pass per-slot pos, seq_lens "
-            "and paged_tables")
-    paged = {"tables": paged_tables, "seq_lens": seq_lens}
+            f"the port's decode covers G and L layers; layer kinds "
+            f"{sorted(unported)} are not ported")
+    if S > 1 or paged_tables is not None:
+        unsupported = set(pat + tail) - {"G", "M"}
+        if unsupported:
+            raise NotImplementedError(
+                "chunked prefill and paged decode need absolute-position "
+                f"KV caches; layer kinds {sorted(unsupported)} are "
+                "rolling/recurrent")
+    per_slot = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    paged = None
+    if paged_tables is not None:
+        assert per_slot and seq_lens is not None, \
+            "paged decode needs per-slot positions and seq_lens"
+        paged = {"tables": paged_tables, "seq_lens": seq_lens}
     h = L.embed(cfg, params["embed"], tokens)
-    positions = (pos[:, None].int()
-                 + torch.arange(S, dtype=torch.int32,
-                                device=tokens.device)[None, :])
+    steps = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
+    positions = pos[:, None].int() + steps if per_slot else pos + steps
+
+    def sub_cache_pos(kind):
+        if kind == "L":
+            return pos % (cfg.window or 1)
+        return pos
+
+    def sub_valid_len(kind):
+        # L caches are rolling windows: once wrapped, every slot is valid
+        if kind == "L":
+            w = cfg.window or 1
+            return (torch.clamp(pos + 1, max=w) if per_slot
+                    else min(pos + 1, w))
+        return pos + 1
+
+    def apply(kind, prm, layer_cache, h):
+        return _apply_sublayer(cfg, prm, h, positions=positions,
+                               cache=layer_cache,
+                               cache_pos=sub_cache_pos(kind),
+                               cache_valid_len=sub_valid_len(kind),
+                               paged=paged)
+
     for li in range(n_rep):
         for key in _unit_keys(pat):
             prm = tree_map(lambda t: t[li], params["stack"][key])
             layer_cache = {n: c[li] for n, c in cache["stack"][key].items()}
-            h = _apply_sublayer(cfg, prm, h, positions=positions,
-                                cache=layer_cache, cache_pos=pos,
-                                paged=paged)
+            h = apply(key.split("_")[1], prm, layer_cache, h)
     for i, k in enumerate(tail):
         key = f"tail_{i}_{k}"
-        h = _apply_sublayer(cfg, params[key], h, positions=positions,
-                            cache=cache[key], cache_pos=pos, paged=paged)
-    # unembed only each row's last real token (padded rows are junk and a
-    # full (B,S,V) logit tensor is wasted work)
-    last = torch.clamp(seq_lens.long() - 1, min=0)
-    h = h[torch.arange(B, device=h.device), last][:, None]
+        h = apply(k, params[key], cache[key], h)
+    if S > 1 or seq_lens is not None:
+        # unembed only each row's last real token (padded rows are junk and
+        # a full (B,S,V) logit tensor is wasted work)
+        last = (torch.clamp(seq_lens.long() - 1, min=0)
+                if seq_lens is not None
+                else torch.full((B,), S - 1, device=h.device))
+        h = h[torch.arange(B, device=h.device), last][:, None]
     h = L.norm(cfg, params["ln_f"], h)
     return L.unembed(cfg, params["embed"], h), cache

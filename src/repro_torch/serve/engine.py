@@ -1,20 +1,27 @@
-"""Continuous-batching serve engine over a device-resident paged KV pool,
+"""Continuous-batching serve engine over a device-resident KV block pool,
 with a LERC prefix cache underneath; mirrors ``src/repro/serve/engine.py``
-on its paged data plane.
+on both of its data planes.
 
 * **Chunked prefill** — each engine step feeds up to ``prefill_chunk``
   prompt tokens per slot through one batched decode step; prefill-chunk
   slots and decode slots share the dispatch, decode rows right-padded and
   masked.
-* **Zero-copy paged attention** — the ``KVBlockPool`` is the ONLY KV
-  storage. Each slot owns a *block table* (host-side list of pool rows); a
-  prefix hit appends the store's rows to the table (zero copies), new
-  tokens are written by the model straight into the slot's tail pool rows
-  (in place), attention streams from the rows the table names (the CUDA
-  paged-attention kernel on the card, its plain version on the CPU), and
-  publish is an ownership transfer of the already-written rows to the
-  store. Rows are refcounted: evicting a block another slot still reads
-  defers the reclaim to that slot's completion.
+* **Zero-copy paged attention** (``paged=True``) — the ``KVBlockPool`` is
+  the ONLY KV storage. Each slot owns a *block table* (host-side list of
+  pool rows); a prefix hit appends the store's rows to the table (zero
+  copies), new tokens are written by the model straight into the slot's
+  tail pool rows (in place), attention streams from the rows the table
+  names (the CUDA paged-attention kernel on the card, its plain version on
+  the CPU), and publish is an ownership transfer of the already-written
+  rows to the store. Rows are refcounted: evicting a block another slot
+  still reads defers the reclaim to that slot's completion.
+* **Gather plane** (``paged=False``, the default) — per-slot contiguous
+  caches, written in place; a hit is a gather pool→slot, publish a scatter
+  slot→pool, and every one-token attention runs the CUDA flash-decoding
+  kernel on the card (its plain version on the CPU). The only plane for
+  patterns with rolling-window (L) layers, whose KV layout is not
+  absolute-position: those run the store's lookups and evictions but
+  recompute their prefill instead of restoring it.
 * **Pipelined host readback** — the argmax token of step N is routed into
   step N+1's feed *on device*, so the engine only waits on a device→host
   copy when a request finishes (or every ``eos_interval`` steps when EOS
@@ -25,21 +32,22 @@ Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
 is the reference engine's, op for op: ``tests/test_torch_engine.py`` holds
 the two to identical tokens, eviction logs and metrics.
 
-Not ported yet, and refused with ``NotImplementedError``: the gather data
-plane (``paged=False``), tiered stores, serve tensor parallelism and
-``step_hlo``.
+Not ported yet, and refused with ``NotImplementedError``: tiered stores,
+serve tensor parallelism and ``step_hlo``.
 """
 from __future__ import annotations
 
 import itertools
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Sequence, Union
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..models.common import ModelConfig, tree_map
+from ..models.api import init_decode_cache
+from ..models.common import ModelConfig, tree_map, tree_paths
 from ..models.lm import cache_shapes, lm_decode_step
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
@@ -92,7 +100,7 @@ class ServeEngine:
                  max_seq: int = 256, store: Optional[PrefixStore] = None,
                  eos_id: int = -1, prefill_chunk: int = 8,
                  pool_blocks: Optional[int] = None,
-                 paged: bool = True,
+                 paged: bool = False,
                  scheduler: Union[str, Scheduler, None] = None,
                  max_queue: Optional[int] = None,
                  clock: Optional[StepCostModel] = None,
@@ -100,22 +108,37 @@ class ServeEngine:
                  kv_shard=None,
                  device: Union[str, torch.device, None] = None) -> None:
         self.device = resolve_device(device)
-        if not paged:
-            raise NotImplementedError(
-                "the gather data plane (paged=False) is not ported yet")
         if tp != 1 or kv_shard is not None:
             raise NotImplementedError(
                 "serve tensor parallelism is not ported yet")
         if hasattr(store, "attach_pools"):
             raise NotImplementedError("tiered KV stores are not ported yet")
-        if not set(cfg.layer_pattern) <= {"G"}:
-            raise NotImplementedError(
-                "the paged plane needs absolute-position KV caches; pattern "
-                f"{cfg.layer_pattern!r} is not ported yet")
         # KV leaves as meta tensors: shapes and dtypes, no memory
         template = tree_map(
             lambda s: torch.empty(s, dtype=cfg.dtype, device="meta"),
             cache_shapes(cfg, 1, 8))
+        for path, _ in tree_paths(template):
+            assert path[-1] in ("k", "v"), (
+                "ServeEngine supports uniform-KV patterns; got leaf "
+                f"{'/'.join(path)}")
+        absolute_kv = set(cfg.layer_pattern) <= {"G", "M"}
+        if prefill_chunk > 1 and not absolute_kv:
+            warnings.warn(
+                "chunked prefill needs absolute-position KV caches; "
+                f"pattern {cfg.layer_pattern!r} has rolling/recurrent "
+                "layers — clamping prefill_chunk to 1", stacklevel=2)
+            prefill_chunk = 1
+        if paged and not absolute_kv:
+            warnings.warn(
+                "paged attention needs absolute-position KV caches; "
+                f"pattern {cfg.layer_pattern!r} has rolling/recurrent "
+                "layers — falling back to the gather engine", stacklevel=2)
+            paged = False
+        # rolling-window (L) KV keeps only the last `window` tokens, so a
+        # chain block cannot be restored into it: such patterns run the
+        # full store machinery (lookups, evictions) but pay prefill
+        # recompute instead of a restore
+        self.restore_prefix = absolute_kv
         self.tp = 1
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -125,28 +148,34 @@ class ServeEngine:
                                           policy="lerc")
         self.eos_id = eos_id
         self.prefill_chunk = max(int(prefill_chunk), 1)
-        self.paged = True
+        self.paged = bool(paged)
 
-        # ----- paged pool: sized so the store's byte budget, not the pool,
-        # is always the binding constraint, plus each slot's private tail
-        # rows
+        # ----- pool: sized so the store's byte budget, not the pool, is
+        # always the binding constraint; on the paged plane it also
+        # carries each slot's private tail rows
         bt = self.store.block_tokens
         self.table_width = -(-max_seq // bt)
         blk_bytes = chain_block_nbytes(template, bt)
         if pool_blocks is None:
             by_capacity = -(-self.store.capacity // max(blk_bytes, 1))
             pool_blocks = int(min(by_capacity, _DEFAULT_POOL_BLOCKS))
-            pool_blocks += self.B * self.table_width + 1
+            if self.paged:
+                pool_blocks += self.B * self.table_width + 1
         self.pool = KVBlockPool(template, bt, pool_blocks, self.device)
-        # every right-padded / inactive-slot token is scattered into this
-        # reserved row, so real rows only ever see real writes
-        self._junk_row = self.pool.alloc()
-        assert self._junk_row == 0
-        self._tables: List[List[int]] = [[] for _ in range(self.B)]
-        # tables only change on admission/completion, not per decode step —
-        # keep the device copy and re-upload only when dirty
-        self._tables_dev: Optional[torch.Tensor] = None
-        self._tables_dirty = True
+        if self.paged:
+            self.cache = None
+            # every right-padded / inactive-slot token is scattered into
+            # this reserved row, so real rows only ever see real writes
+            self._junk_row = self.pool.alloc()
+            assert self._junk_row == 0
+            self._tables: List[List[int]] = [[] for _ in range(self.B)]
+            # tables only change on admission/completion, not per decode
+            # step — keep the device copy and re-upload only when dirty
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._tables_dirty = True
+        else:
+            self.cache = init_decode_cache(cfg, self.B, max_seq,
+                                           device=self.device)
         self.store.evict_payload = self.pool.free
 
         self._prev_out = torch.zeros((self.B,), dtype=torch.int32,
@@ -174,7 +203,7 @@ class ServeEngine:
         self.decoded_tokens = 0
         self.prefill_tokens = 0
         self.prefill_tokens_skipped = 0
-        self.transfer_dispatches = 0    # copy-on-write copies
+        self.transfer_dispatches = 0    # gather/scatter/copy-on-write
         self.readback_syncs = 0         # device→host blocking reads
         self.rejected = 0               # backpressure sheds
         self.cancellations = 0
@@ -300,13 +329,33 @@ class ServeEngine:
 
     def _publish(self, req: Request) -> None:
         """Prefill complete: publish the prompt's KV chain into the store.
-        The chain's blocks already live in pool rows the slot's block table
-        names — the payload factory hands the store a shared reference to
-        each fresh block's row. Zero copies."""
-        table = self._tables[req.slot]
-        self.store.insert(req.prompt,
-                          lambda i, _node: self.pool.share(table[i]),
-                          self.pool.block_nbytes)
+
+        Paged: the chain's blocks already live in pool rows the slot's
+        block table names — the payload factory hands the store a shared
+        reference to each fresh block's row. Zero copies.
+
+        Gather: the store makes room first (freeing pool indices), then the
+        factory allocates one pool row per fresh block and a single scatter
+        captures exactly those blocks from the slot's contiguous cache."""
+        if self.paged:
+            table = self._tables[req.slot]
+            self.store.insert(req.prompt,
+                              lambda i, _node: self.pool.share(table[i]),
+                              self.pool.block_nbytes)
+            return
+        fresh: List[Tuple[int, int]] = []       # (chain position, pool row)
+
+        def alloc(i, _node):
+            idx = self.pool.alloc()
+            fresh.append((i, idx))
+            return idx
+
+        self.store.insert(req.prompt, alloc, self.pool.block_nbytes)
+        if fresh:
+            self.pool.scatter_from(self.cache, req.slot,
+                                   [i for i, _ in fresh],
+                                   [idx for _, idx in fresh])
+            self.transfer_dispatches += 1
 
     # ---------------------------------------------------------------- admit
     def _admit(self) -> None:
@@ -323,28 +372,37 @@ class ServeEngine:
                 del self.queue[pick]
             self._fresh_slots.add(i)
             usable = self.store.lookup(req.prompt)
+            if not self.restore_prefix:
+                usable = []             # hit metrics recorded; no restore
             restored = len(usable) * bt
             # the last prompt token is always recomputed: its logits seed
             # generation and were never cached
             restored = min(restored, len(req.prompt) - 1)
-            # prefix hit = a host-side block-table write: the slot reads
-            # the store's rows in place (refcounted shares)
-            table = [self.pool.share(n.payload) for n in usable]
-            if table and restored < len(table) * bt:
-                # fully-resident chain: the final block must absorb the
-                # recomputed last prompt token — copy-on-write so the
-                # store's row stays pristine
-                priv = self.pool.alloc()
-                self.pool.copy_row(table[-1], priv)
-                self.pool.free(table[-1])
-                table[-1] = priv
+            if self.paged:
+                # prefix hit = a host-side block-table write: the slot
+                # reads the store's rows in place (refcounted shares)
+                table = [self.pool.share(n.payload) for n in usable]
+                if table and restored < len(table) * bt:
+                    # fully-resident chain: the final block must absorb
+                    # the recomputed last prompt token — copy-on-write so
+                    # the store's row stays pristine
+                    priv = self.pool.alloc()
+                    self.pool.copy_row(table[-1], priv)
+                    self.pool.free(table[-1])
+                    table[-1] = priv
+                    self.transfer_dispatches += 1
+                # private tail rows for the rest of the prompt + decode
+                horizon = min(len(req.prompt) + req.max_new, self.max_seq)
+                while len(table) * bt < horizon:
+                    table.append(self.pool.alloc())
+                self._tables[i] = table
+                self._tables_dirty = True
+            elif usable:
+                # gather pool→slot: the whole resident chain lands in one
+                # transfer
+                self.pool.gather_into(self.cache, i,
+                                      [n.payload for n in usable])
                 self.transfer_dispatches += 1
-            # private tail rows for the rest of the prompt + decode
-            horizon = min(len(req.prompt) + req.max_new, self.max_seq)
-            while len(table) * bt < horizon:
-                table.append(self.pool.alloc())
-            self._tables[i] = table
-            self._tables_dirty = True
             req.slot = i
             req.pos = restored
             req.prefill_skipped = restored
@@ -362,11 +420,12 @@ class ServeEngine:
 
     # ----------------------------------------------------------------- step
     def _dispatch(self, tokens: np.ndarray, meta: np.ndarray,
-                  tables: torch.Tensor) -> torch.Tensor:
+                  tables: Optional[torch.Tensor]) -> torch.Tensor:
         """One batched decode step on the device: route the previous
-        argmax into decode feeds, run the model over the pool (written in
-        place), fold the emitted tokens into the device-side EOS mask.
-        Returns the (B,) argmax tokens, left on the device.
+        argmax into decode feeds, run the model over the pool (paged, with
+        block ``tables``) or the per-slot caches (gather, ``tables`` None),
+        written in place, and fold the emitted tokens into the device-side
+        EOS mask. Returns the (B,) argmax tokens, left on the device.
 
         meta rows: 0 = per-slot position, 1 = real tokens this step,
         2 = route the previous argmax into column 0 (decode feed),
@@ -377,9 +436,9 @@ class ServeEngine:
         meta_d = torch.from_numpy(meta).to(self.device)
         pos, lens, use_prev = meta_d[0], meta_d[1], meta_d[2].bool()
         t[:, 0] = torch.where(use_prev, self._prev_out, t[:, 0])
-        logits, _ = lm_decode_step(self.cfg, self.params, self.pool.buffers,
-                                   t, pos, seq_lens=lens,
-                                   paged_tables=tables)
+        kv = self.pool.buffers if self.paged else self.cache
+        logits, _ = lm_decode_step(self.cfg, self.params, kv, t, pos,
+                                   seq_lens=lens, paged_tables=tables)
         out = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         if self.eos_id >= 0:
             emit, reset = meta_d[3].bool(), meta_d[4].bool()
@@ -460,7 +519,7 @@ class ServeEngine:
         for i in self._fresh_slots:
             meta[4, i] = 1
         self._fresh_slots.clear()
-        if self._tables_dirty:
+        if self.paged and self._tables_dirty:
             # attention costs scale with the widest ACTIVE table, not
             # max_seq. Bucketed to multiples of 4 so the table widths the
             # kernel sees stay few.
@@ -472,7 +531,8 @@ class ServeEngine:
                 tables[r.slot, :len(tab)] = tab
             self._tables_dev = torch.from_numpy(tables).to(self.device)
             self._tables_dirty = False
-        out_tok = self._dispatch(tokens, meta, self._tables_dev)
+        out_tok = self._dispatch(tokens, meta,
+                                 self._tables_dev if self.paged else None)
         self._prev_out = out_tok
         if dispatch is not None:
             dispatch.end(args={"S": S, "fed": len(fed),
@@ -543,13 +603,14 @@ class ServeEngine:
 
     def _release_slot(self, r: Request) -> None:
         """Free a slot's engine-side resources *now* (finish or cancel):
-        every block-table row drops the slot's reference — private tail
-        rows return to the pool immediately, store-shared rows survive on
-        the store's own reference."""
-        for idx in self._tables[r.slot]:
-            self.pool.free(idx)
-        self._tables[r.slot] = []
-        self._tables_dirty = True
+        on the paged plane every block-table row drops the slot's
+        reference — private tail rows return to the pool immediately,
+        store-shared rows survive on the store's own reference."""
+        if self.paged:
+            for idx in self._tables[r.slot]:
+                self.pool.free(idx)
+            self._tables[r.slot] = []
+            self._tables_dirty = True
         self.slots[r.slot] = None
 
     def _drain(self, r: Request) -> None:
@@ -580,6 +641,11 @@ class ServeEngine:
             "runs eagerly and has no counterpart")
 
     # -------------------------------------------------------------- metrics
+    def _kv_bytes(self) -> int:
+        cache = 0 if self.cache is None else sum(
+            t.numel() * t.element_size() for _, t in tree_paths(self.cache))
+        return self.pool.nbytes + cache
+
     def metrics(self) -> Dict[str, float]:
         m = dict(self.store.metrics())
         m.update({
@@ -596,11 +662,11 @@ class ServeEngine:
             "rejected": self.rejected,
             "cancellations": self.cancellations,
             "host_syncs_avoided": max(self.steps - self.readback_syncs, 0),
-            # per-device vs global KV bytes; equal at tp=1, the only
-            # ported layout
+            # per-device vs global KV bytes (pool plus the gather plane's
+            # per-slot caches); equal at tp=1, the only ported layout
             "serve_tp": self.tp,
-            "device_kv_bytes": self.pool.nbytes,
-            "kv_bytes_global": self.pool.nbytes,
+            "device_kv_bytes": self._kv_bytes(),
+            "kv_bytes_global": self._kv_bytes(),
             "prefill_saved_frac": (
                 self.prefill_tokens_skipped
                 / max(self.prefill_tokens + self.prefill_tokens_skipped, 1)),

@@ -1,5 +1,5 @@
 """Device-resident paged KV block pool; mirrors
-``src/repro/serve/kv_pool.py`` (the paged engine's half).
+``src/repro/serve/kv_pool.py`` (its untiered, unsharded half).
 
 The serving data plane's ONLY KV storage: one preallocated device buffer
 per KV cache leaf, shaped ``(*lead, num_blocks, block_tokens, KV, D)``
@@ -12,8 +12,11 @@ tables: a prefix hit is a host-side table write, publish transfers
 ownership of already-written rows to the store (``share``), and eviction
 drops a reference — rows are reclaimed when the last referent (store, or
 an engine slot still reading the row) lets go. The model writes rows in
-place; ``copy_row`` is the only copy the engine issues. When the free list
-runs dry under an unbounded-capacity store the pool doubles.
+place; ``copy_row`` is the only copy the engine issues. The gather engine
+(the fallback for rolling-window layer patterns) copies chains pool→slot
+on a hit (``gather_into``) and slot→pool on publish (``scatter_from``);
+every row then has exactly one referent. When the free list runs dry under
+an unbounded-capacity store the pool doubles.
 """
 from __future__ import annotations
 
@@ -119,6 +122,43 @@ class KVBlockPool:
         self.refs.extend([0] * old)
 
     # ------------------------------------------------------------ transfers
+    def gather_into(self, cache, slot: int, idxs: List[int]):
+        """Restore chain blocks ``idxs`` into ``slot``'s cache rows at token
+        positions [0, n*bt), in place; returns the cache. Device-to-device
+        only. (Gather-engine hit path.)"""
+        rows = torch.tensor(idxs, dtype=torch.long, device=self.device)
+        n = len(idxs)
+        for leaf, pbuf in zip(_leaves(cache), _leaves(self.buffers)):
+            ax = _row_axis(pbuf)
+            blocks = pbuf.index_select(ax, rows)   # (*lead, n, bt, KV, D)
+            chain = blocks.reshape(blocks.shape[:ax]
+                                   + (n * self.block_tokens,)
+                                   + blocks.shape[-2:])
+            leaf.select(ax, slot).narrow(ax, 0, chain.shape[ax]).copy_(chain)
+        return cache
+
+    def scatter_from(self, cache, slot: int, block_positions: List[int],
+                     idxs: List[int]) -> None:
+        """Capture the blocks at chain positions ``block_positions`` of
+        ``slot``'s cache into pool rows ``idxs``. A block's start is
+        clamped so the block fits the leaf, as the reference's
+        ``dynamic_slice`` clamps it: a rolling-window leaf narrower than
+        the chain gives its first ``bt`` slots for every late block.
+        Device-to-device only. (Gather-engine publish path.)"""
+        bt = self.block_tokens
+        rows = torch.tensor(idxs, dtype=torch.long, device=self.device)
+        starts = torch.tensor([p * bt for p in block_positions],
+                              dtype=torch.long, device=self.device)
+        steps = torch.arange(bt, device=self.device)
+        for leaf, pbuf in zip(_leaves(cache), _leaves(self.buffers)):
+            ax = _row_axis(pbuf)
+            width = leaf.shape[ax + 1]
+            tok = starts.clamp(0, width - bt)[:, None] + steps[None, :]
+            row = leaf.select(ax, slot)             # (*lead, S, KV, D)
+            blocks = row.index_select(ax, tok.reshape(-1))
+            pbuf.index_copy_(ax, rows, blocks.reshape(
+                blocks.shape[:ax] + (len(idxs), bt) + blocks.shape[-2:]))
+
     def copy_row(self, src: int, dst: int) -> None:
         """One-row device copy (paged-engine copy-on-write)."""
         for pbuf in _leaves(self.buffers):

@@ -1,6 +1,6 @@
-"""The port's CUDA paged-attention kernel against its plain version, on the
-card. These tests need a GPU and nvcc; elsewhere they skip. Run them on
-the card with
+"""The port's CUDA kernels (paged attention, flash-decoding) against their
+plain versions, on the card. These tests need a GPU and nvcc; elsewhere
+they skip. Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -9,7 +9,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (paged_attention_plain,  # noqa: E402
+from repro_torch.kernels import (decode_attention,  # noqa: E402
+                                 decode_attention_plain,
+                                 paged_attention_plain,
                                  paged_decode_attention)
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +78,75 @@ def test_wrapper_raises_on_what_kernel_does_not_take(dev):
         paged_decode_attention(strided_q, *args[1:])
     with pytest.raises(ValueError, match="mixed devices|is on"):
         paged_decode_attention(args[0], args[1].cpu(), *args[2:])
+
+
+# (B, S, H, KV, D, window, softcap, valid lengths): the reference test's
+# cases (valid S - 7i), rows that see nothing or one slot, the gemma2 main
+# path's shapes (ragged at S=128, the wrapped L window at S=4096, split
+# over blocks), split key ranges under a window and past the cache's
+# width, and odd sizes: qwen2 smoke's G=7 heads of D=8, D=256, G=16 (two
+# row groups a KV head), MQA with G=8
+DECODE_CASES = [
+    (2, 128, 4, 2, 64, None, None, [128, 121]),
+    (1, 200, 8, 1, 64, None, 50.0, [200]),
+    (3, 256, 4, 4, 64, 64, None, [256, 249, 242]),
+    (2, 96, 8, 2, 128, None, None, [96, 89]),
+    (4, 40, 4, 2, 32, None, None, [0, 1, 40, 17]),
+    (8, 128, 32, 16, 128, None, 50.0, [80, 128, 1, 96, 33, 64, 127, 5]),
+    (8, 4096, 32, 16, 128, None, 50.0, [4096] * 8),
+    (3, 1000, 8, 4, 64, 300, 30.0, [1000, 640, 0]),
+    (2, 700, 4, 2, 64, None, None, [900, 333]),
+    (3, 33, 7, 1, 8, None, None, [33, 2, 20]),
+    (2, 300, 4, 2, 256, None, None, [300, 271]),
+    (2, 64, 32, 2, 64, 16, None, [64, 10]),
+    (2, 512, 8, 1, 128, None, 50.0, [512, 77]),
+]
+
+
+def _decode_inputs(case, dtype, dev, seed):
+    B, S, H, KV, D, _, _, valid = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(dev, dtype) for s in
+               [(B, H, D), (B, S, KV, D), (B, S, KV, D)])
+    return [q, k, v, torch.tensor(valid, dtype=torch.int32, device=dev)]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+def test_decode_kernel_matches_plain(dev, case, dtype, atol):
+    """f32: both sum in fp32, in different orders. bf16: both round an
+    fp32 result below 2 in magnitude to bf16 (one ulp <= 7.8e-3)."""
+    window, softcap = case[5], case[6]
+    args = _decode_inputs(case, getattr(torch, dtype), dev,
+                          seed=sum(case[:5]))
+    before = decode_attention.launches
+    got = decode_attention(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(*args, window, softcap)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    for b, vl in enumerate(case[-1]):
+        if vl == 0:
+            assert not got[b].any()
+
+
+def test_decode_wrapper_raises_on_what_kernel_does_not_take(dev):
+    case = DECODE_CASES[0]
+    args = _decode_inputs(case, torch.float16, dev, seed=0)
+    with pytest.raises(TypeError):
+        decode_attention(*args)
+    q, k, v, valid = _decode_inputs(case, torch.float32, dev, seed=0)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(q, k, v, valid.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                         v, valid)
+    with pytest.raises(ValueError, match="mixed devices|is on"):
+        decode_attention(q, k.cpu(), v, valid)
+    with pytest.raises(ValueError, match="window"):
+        decode_attention(q, k, v, valid, window=-1)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                         v[..., :12].contiguous(), valid)

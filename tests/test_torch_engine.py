@@ -1,15 +1,22 @@
-"""The port's paged ServeEngine (on the CPU) against the reference's
-``ServeEngine(paged=True)`` on the qwen2-7b smoke config in f32, with the
-reference's weights carried over by the bridge.
+"""The port's ServeEngine (on the CPU) against the reference's, on both data
+planes, in f32 with the reference's weights carried over by the bridge:
+the paged plane on the qwen2-7b smoke config, and the gather plane
+(``paged=False``) on the gemma2-27b smoke config (rolling-window L layers,
+softcaps, prefill recomputed: no restore) and on qwen2-7b smoke (prefix
+hits restored by a gather pool→slot).
 
 The workload is ``tests/test_engine_equivalence.py``'s (shared-prefix,
 uniform lengths, byte pressure) with its duplicate of the first prompt
 appended, and a duplicate of the last, whose chain is still resident when
-it arrives: the copy-on-write path runs under every policy. Both engines
-must give identical generated tokens, a bit-identical eviction log,
-identical ERC counters, prefix reuse, step counts and ``metrics()``; the
-port's pool must hold exactly the store's resident rows plus the junk row
-afterwards. The launcher must print what the reference launcher prints."""
+it arrives: the copy-on-write path of the paged plane runs under every
+policy. Both engines must give identical generated tokens, a bit-identical
+eviction log, identical ERC counters, prefix reuse, step counts and
+``metrics()``; the port's pool must hold exactly the store's resident rows
+(plus the paged plane's junk row) afterwards, and on the gather plane the
+pool and the per-slot caches must hold what the reference's hold. The
+launcher must print what the reference launcher prints."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +32,7 @@ from repro.serve import PrefixStore as JaxStore  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import serve_main  # noqa: E402
-from repro_torch.models import params_from_numpy  # noqa: E402
+from repro_torch.models import params_from_numpy, tree_paths  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
 
 BT = 8          # block_tokens
@@ -33,13 +40,22 @@ PROMPT = 32     # uniform prompt length (4 blocks)
 MAX_NEW = 4
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = jax_configs.get("qwen2_7b", smoke=True).replace(dtype=jnp.float32)
-    tcfg = configs.get("qwen2_7b", smoke=True).replace(dtype=torch.float32)
+def _model(arch):
+    jcfg = jax_configs.get(arch, smoke=True).replace(dtype=jnp.float32)
+    tcfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
     jparams = jax_init_params(jax.random.key(0), jax_model_spec(jcfg),
                               dtype=jnp.float32)
     return jcfg, tcfg, jparams, params_from_numpy(jax.device_get(jparams))
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model("qwen2_7b")
+
+
+@pytest.fixture(scope="module")
+def gemma2():
+    return _model("gemma2_27b")
 
 
 def workload(vocab, n_requests=8, n_families=3, seed=7):
@@ -54,14 +70,14 @@ def workload(vocab, n_requests=8, n_families=3, seed=7):
 
 
 def _engine(engine_cls, store_cls, cfg, params, policy, chunk, scheduler,
-            **kw):
+            paged=True, **kw):
     probe = engine_cls(cfg, params, max_slots=2, max_seq=64,
                        store=store_cls(1 << 30, "lerc", block_tokens=BT),
-                       pool_blocks=1, **kw)
+                       pool_blocks=1, prefill_chunk=chunk, paged=paged, **kw)
     cap = probe._block_nbytes() * 10            # < working set -> evictions
     st = store_cls(cap, policy, block_tokens=BT)
     eng = engine_cls(cfg, params, max_slots=2, max_seq=64, store=st,
-                     prefill_chunk=chunk, paged=True, scheduler=scheduler,
+                     prefill_chunk=chunk, paged=paged, scheduler=scheduler,
                      **kw)
     return eng, st
 
@@ -75,14 +91,26 @@ def _run(engine_cls, store_cls, cfg, params, policy, chunk, scheduler,
     return eng, st, rs
 
 
-def _assert_same(model, policy, chunk, scheduler=None):
+def _assert_kv_close(tree, jtree):
+    """Same KV contents, to 2e-4 of each leaf's scale: the f32 drift of
+    the layers below a cache entry (see test_torch_gather_decode.py)."""
+    ref = dict(tree_paths(jax.device_get(jtree)))
+    for path, t in tree_paths(tree):
+        want = np.asarray(ref[path])
+        np.testing.assert_allclose(t.numpy(), want,
+                                   atol=2e-4 * np.abs(want).max(),
+                                   err_msg=str(path))
+
+
+def _assert_same(model, policy, chunk, scheduler=None, paged=True):
     jcfg, tcfg, jparams, tparams = model
     jeng, jst, jrs = _run(JaxEngine, JaxStore, jcfg, jparams, policy, chunk,
-                          scheduler)
+                          scheduler, paged=paged)
     teng, tst, trs = _run(ServeEngine, PrefixStore, tcfg, tparams, policy,
-                          chunk, scheduler, device="cpu")
+                          chunk, scheduler, paged=paged, device="cpu")
     assert jst.evictions > 0, "workload produced no pressure"
-    assert jeng.transfer_dispatches > 0, "copy-on-write path not taken"
+    assert jeng.transfer_dispatches > 0, "no copy-on-write or scatter"
+    assert teng.paged == jeng.paged == paged
     assert [r.generated for r in trs] == [r.generated for r in jrs]
     assert tst.eviction_log == jst.eviction_log
     assert [r.prefill_skipped for r in trs] == \
@@ -93,7 +121,11 @@ def _assert_same(model, policy, chunk, scheduler=None):
     assert teng.transfer_dispatches == jeng.transfer_dispatches
     assert teng.metrics() == jeng.metrics()
     assert teng.pool.blocks_in_use == \
-        sum(1 for n in tst._nodes.values() if n.resident) + 1  # junk row
+        sum(1 for n in tst._nodes.values() if n.resident) + paged  # junk row
+    if not paged:
+        _assert_kv_close(teng.pool.buffers, jeng.pool.buffers)
+        _assert_kv_close(teng.cache, jeng.cache)
+    return jeng, teng
 
 
 @pytest.mark.parametrize("policy", ["lru", "lrc", "lerc"])
@@ -106,23 +138,94 @@ def test_budgeted_scheduler_matches_reference(model):
     _assert_same(model, "lerc", 8, scheduler="budgeted")
 
 
+@pytest.mark.parametrize("policy", ["lru", "lrc", "lerc"])
+def test_gather_engine_matches_reference_on_rolling_layers(gemma2, policy):
+    """gemma2 smoke: L caches 8 slots wide under 32-token prompts, so every
+    publish scatters clamped blocks out of them; hits are counted, no
+    prefill is skipped (restore is off for rolling layers)."""
+    jeng, _ = _assert_same(gemma2, policy, 1, paged=False)
+    m = jeng.metrics()
+    assert m["hits"] > 0 and m["prefill_tokens_skipped"] == 0
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_gather_engine_matches_reference(model, chunk):
+    """qwen2 smoke on the gather plane: prefix hits restored by a gather
+    pool→slot, chunks through ``_sdpa``, decode through flash-decoding."""
+    jeng, _ = _assert_same(model, "lerc", chunk, paged=False)
+    assert jeng.metrics()["prefill_tokens_skipped"] > 0
+
+
+def test_budgeted_scheduler_matches_reference_on_gather_plane(model):
+    _assert_same(model, "lerc", 8, scheduler="budgeted", paged=False)
+
+
+def test_default_plane_and_fallback_warnings():
+    """The reference's defaults: the gather plane unless asked for the
+    paged one; a rolling-window pattern clamps the chunk to 1 and falls
+    back from paged to gather, with the reference's warnings."""
+    gcfg = configs.get("gemma2_27b", smoke=True)
+    qcfg = configs.get("qwen2_7b", smoke=True)
+    assert not ServeEngine(qcfg, {}, max_slots=1, max_seq=16,
+                           device="cpu").paged
+    assert JaxEngine(jax_configs.get("qwen2_7b", smoke=True), {},
+                     max_slots=1, max_seq=16).paged is False
+    said = []
+    for cls, cfg, kw in ((JaxEngine, jax_configs.get("gemma2_27b",
+                                                     smoke=True), {}),
+                         (ServeEngine, gcfg, {"device": "cpu"})):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            eng = cls(cfg, {}, max_slots=1, max_seq=16, paged=True,
+                      prefill_chunk=8, **kw)
+        assert not eng.paged and eng.prefill_chunk == 1
+        assert not eng.restore_prefix
+        said.append([str(w.message) for w in rec
+                     if issubclass(w.category, UserWarning)])
+    assert len(said[0]) == 2 and said[1] == said[0]
+    assert "clamping prefill_chunk to 1" in said[1][0]
+    assert "falling back to the gather engine" in said[1][1]
+
+
+LAUNCH_ARGS = ["--smoke", "--requests", "4", "--slots", "2", "--max-seq",
+               "32", "--shared-prefix", "16", "--max-new", "2", "--cache-kb",
+               "8", "--block-tokens", "4"]
+
+
+def _launch_both(capsys, args):
+    """Run both launchers on ``args``; returns their metric lines and
+    their header lines (the run's flags, wall time stripped)."""
+    out = []
+    for main, extra in ((jax_serve_main, []),
+                        (serve_main, ["--device", "cpu"])):
+        assert main(args + extra) == 0
+        lines = capsys.readouterr().out.splitlines()
+        out.append(([ln for ln in lines if ln.startswith("  ")],
+                    [ln for ln in lines if ln.startswith("policy=")]))
+    return out
+
+
 def test_launcher_prints_reference_metrics(capsys):
     """Same flags, same printed metrics, key for key and value for value:
     the store and engine counters do not depend on the weights."""
-    args = ["--arch", "qwen2_7b", "--smoke", "--requests", "4", "--slots",
-            "2", "--max-seq", "32", "--shared-prefix", "16", "--max-new",
-            "2", "--cache-kb", "8", "--block-tokens", "4"]
-
-    def metric_lines():
-        return [ln for ln in capsys.readouterr().out.splitlines()
-                if ln.startswith("  ")]
-
-    assert jax_serve_main(args) == 0
-    ref = metric_lines()
-    assert serve_main(args + ["--device", "cpu"]) == 0
-    got = metric_lines()
+    (ref, _), (got, _) = _launch_both(capsys,
+                                      ["--arch", "qwen2_7b"] + LAUNCH_ARGS)
     assert [ln.split()[0] for ln in got] == [ln.split()[0] for ln in ref]
     assert got == ref
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("gemma2_27b", []),
+    ("qwen2_7b", ["--no-paged-attention"]),
+])
+def test_launcher_gather_plane_prints_reference_metrics(capsys, arch, flags):
+    """The gather plane through both launchers: gemma2 takes it by default
+    (with ``--prefill-chunk`` clamped to 1), qwen2 when
+    ``--no-paged-attention`` asks for it; both say ``paged=off``."""
+    (ref, ref_head), (got, head) = _launch_both(
+        capsys, ["--arch", arch] + LAUNCH_ARGS + flags)
+    assert got == ref
+    assert "paged=off" in head[0] and "paged=off" in ref_head[0]
 
 
 def test_scheduled_fcfs_matches_reference_run_loop(model):

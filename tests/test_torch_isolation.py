@@ -78,27 +78,38 @@ def test_entry_points_default_to_the_gpu():
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(smoke):
-    ref = jax_configs.get("qwen2-7b", smoke=smoke)
-    port = configs.get("qwen2-7b", smoke=smoke)
-    for f in dataclasses.fields(ref):
-        if f.name != "dtype":
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    assert ref.dtype == jnp.bfloat16 and port.dtype == torch.bfloat16
+    """Every architecture the port lists, field for field."""
+    assert configs.ARCH_IDS == ["gemma2_27b", "qwen2_7b"]
+    for arch in configs.ARCH_IDS:
+        ref = jax_configs.get(arch, smoke=smoke)
+        port = configs.get(arch, smoke=smoke)
+        for f in dataclasses.fields(ref):
+            if f.name != "dtype":
+                assert getattr(port, f.name) == getattr(ref, f.name), \
+                    (arch, f.name)
+        assert ref.dtype == jnp.bfloat16 and port.dtype == torch.bfloat16
     assert configs.canonical("qwen2.7b") == "qwen2_7b"
+    assert configs.canonical("gemma2-27b") == "gemma2_27b"
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_param_spec_tree_equals_reference(smoke):
     """Same names, shapes, axes and init rules as the reference's tree,
-    the stacked ``stack/0_G`` layer axis included."""
-    ref = dict(tree_paths(jax_model_spec(jax_configs.get("qwen2_7b",
-                                                         smoke=smoke))))
-    port = dict(tree_paths(model_spec(configs.get("qwen2_7b", smoke=smoke))))
-    assert port.keys() == ref.keys()
-    for path, s in ref.items():
-        q = port[path]
-        assert (q.shape, q.axes, q.init, q.scale) == \
-            (s.shape, s.axes, s.init, s.scale), path
+    the stacked ``stack/0_G`` (and gemma2's ``stack/0_L``, ``stack/1_G``)
+    layer axes included."""
+    for arch in configs.ARCH_IDS:
+        ref = dict(tree_paths(jax_model_spec(jax_configs.get(arch,
+                                                             smoke=smoke))))
+        port = dict(tree_paths(model_spec(configs.get(arch, smoke=smoke))))
+        assert port.keys() == ref.keys(), arch
+        for path, s in ref.items():
+            q = port[path]
+            assert (q.shape, q.axes, q.init, q.scale) == \
+                (s.shape, s.axes, s.init, s.scale), (arch, path)
     if not smoke:
-        assert port[("stack", "0_G", "mlp", "wi")].shape == \
+        shape = {arch: dict(tree_paths(model_spec(configs.get(arch))))
+                 for arch in configs.ARCH_IDS}
+        assert shape["qwen2_7b"][("stack", "0_G", "mlp", "wi")].shape == \
             (28, 3584, 2, 18944)
+        assert shape["gemma2_27b"][("stack", "0_L", "mlp", "wi")].shape == \
+            (23, 4608, 2, 36864)

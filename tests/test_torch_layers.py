@@ -181,3 +181,29 @@ def test_config_variants(name):
            JL.embed(jcfg, npp["embed"], jnp.asarray(tok)))
     _close(TL.unembed(tcfg, tp["embed"], torch.from_numpy(x)),
            JL.unembed(jcfg, npp["embed"], jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_sdpa_matches_reference(model, softcap):
+    """The gather plane's chunk attention: GQA, a per-row mask, the
+    probabilities cast to v's dtype before PV."""
+    jcfg, tcfg, _, _ = model
+    jcfg = jcfg.replace(attn_logit_softcap=softcap)
+    tcfg = tcfg.replace(attn_logit_softcap=softcap)
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(2, 3, jcfg.n_heads, jcfg.d_head)).astype(np.float32)
+    k = rng.normal(size=(2, 10, jcfg.kv_heads, jcfg.d_head)).astype(
+        np.float32)
+    v = rng.normal(size=k.shape).astype(np.float32)
+    mask = np.arange(10)[None, None, None, :] < np.array(
+        [[4, 5, 6], [9, 10, 11]])[:, None, :, None]
+    _close(TL._sdpa(tcfg, *(torch.from_numpy(a) for a in (q, k, v, mask))),
+           JL._sdpa(jcfg, *(jnp.asarray(a) for a in (q, k, v, mask))))
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_causal_mask_matches_reference(window):
+    for offset in (0, 5):
+        np.testing.assert_array_equal(
+            TL.causal_mask(4, 12, offset, window).numpy(),
+            np.asarray(JL.causal_mask(4, 12, offset, window)))
