@@ -13,7 +13,11 @@ exits non-zero:
              card (f32 on the reference test's cases, bf16 at the main
              paths' shapes) and time both, the library yardstick and the
              least time the card could take. K1 is the paged-attention
-             kernel, K2 the flash-decoding kernel.
+             kernel, K2 the flash-decoding kernel, K3 the flash-attention
+             kernel of the training forward (forward and, through its
+             autograd Function, backward; recurrentgemma's L layer and
+             gemma2's G layer at S=4096), K5 the RG-LRU scan (forward and
+             reverse mode at B=2, T=4096, W=4096).
 4. parity  — the serve engine on the card (kernels) against the same
              engine on the CPU (plain versions), smoke configs in f32: the
              paged plane on qwen2, the gather plane on gemma2 and qwen2.
@@ -31,7 +35,16 @@ exits non-zero:
              every attention is a K2 launch. Then one decode step through
              the plain attention and one through K2 with the rolling
              window wrapped, and a short profiled run.
-7. the kernels line, the card line, and the result line.
+7. train   — parity first: the three smoke configs in f32 trained 3
+             steps on the card (K3, K5) and on the CPU (plain routes) from
+             the same weights and batches. Then the training path at full
+             width: recurrentgemma-9b cut to 5 layers (one RRL unit and
+             the RR tail), bf16, seeded random weights, 4 AdamW steps at
+             batch 2 x 4096 tokens through ``build_train_step``, every
+             K3 and K5 launch counted; each layer's K3 and K5 outputs
+             held to their plain versions at a step's inputs; a profiled
+             step.
+8. the kernels line, the card line, and the result line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails.
@@ -47,6 +60,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -54,23 +68,35 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.data import LoaderConfig, TrainLoader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
-                                 decode_attention_plain,
+                                 decode_attention_plain, flash_attention,
+                                 flash_attention_bwd_plain,
+                                 flash_attention_forward,
+                                 flash_attention_plain,
                                  paged_attention_plain,
-                                 paged_decode_attention)
+                                 paged_decode_attention, rglru_scan,
+                                 rglru_scan_bwd_plain, rglru_scan_plain,
+                                 rglru_scan_reverse)
 from repro_torch.models import (init_decode_cache,  # noqa: E402
-                                init_params, lm_decode_step, model_spec,
-                                tree_paths)
+                                init_params, lm_decode_step, loss_fn,
+                                model_spec, tree_paths)
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import recurrent as model_recurrent  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
+from repro_torch.train import (OptConfig, TrainConfig,  # noqa: E402
+                               adamw_init, build_train_step,
+                               make_train_state)
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
-KERNELS = ["paged_attention", "decode_attention"]
-COUNTED = (paged_decode_attention, decode_attention)
+KERNELS = ["paged_attention", "decode_attention", "flash_attention",
+           "rglru_scan"]
+COUNTED = (paged_decode_attention, decode_attention, flash_attention,
+           rglru_scan, rglru_scan_reverse)
 PAGED_CASES = [
     # (B, S, H, KV, D, bt, NW, softcap), the reference test's cases
     (2, 1, 4, 2, 64, 8, 8, None),
@@ -97,6 +123,36 @@ BF16_ATOL = 2e-2
 # residual stream, so the bar is relative to the logits' own scale
 LOGITS_RTOL = 5e-2
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+# K3's f32 reference cases, (B, S, H, KV, D, window, softcap): the
+# reference test's, and the smoke configs' heads
+FLASH_CASES = [
+    (1, 128, 2, 2, 64, None, None),
+    (2, 256, 4, 1, 64, None, None),
+    (1, 256, 8, 2, 64, None, 50.0),
+    (1, 320, 4, 4, 64, 128, None),
+    (1, 100, 2, 1, 64, 32, 30.0),
+    (2, 40, 7, 1, 8, None, None),
+    (2, 37, 4, 2, 16, 8, 50.0),
+    (2, 64, 2, 1, 32, 16, None),
+]
+# K3 at the training path's shapes: recurrentgemma-9b's L layer and
+# gemma2-27b's G layer, S=4096 (the repo's train_4k length)
+FLASH_SHAPES = {
+    "recurrentgemma_L": dict(B=2, S=4096, H=16, KV=1, D=256, window=2048,
+                             softcap=None),
+    "gemma2_G": dict(B=2, S=4096, H=32, KV=16, D=128, window=None,
+                     softcap=50.0),
+}
+# gradients through K3's Function against the plain backward from the
+# plain forward: the two differ only by the forward's out and lse, so in
+# f32 by fp32 summation order; in bf16 by one ulp of out, carried through
+# dout . out (relative to each gradient's largest magnitude)
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the training-path kernels per layer at full width, bf16: K3 within one
+# bf16 ulp (2^-7) of the layer output's scale; K5 runs in fp32 and
+# rounds as its plain version does
+LAYER_RTOL = {"flash_attention": 2 ** -7, "rglru_scan": 1e-6}
+TRAIN_LOSS_RTOL = 1e-4
 
 
 def emit(phase: str, **kw) -> None:
@@ -340,6 +396,167 @@ def decode_kernel_phase(dev) -> dict:
          f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
     return {"max_abs_err": max(errs.values()), **timings[128],
             "S4096": timings[4096]}
+
+
+def flash_bound(q, k, window):
+    """Least time for K3's forward: the larger of the bytes it must move
+    (q, k, v read once, the output and the fp32 lse written once) over
+    HBM bandwidth and its operations (2 per multiply-add of QK^T and PV,
+    4*D per visible (query, key) pair) over the peak for the dtype."""
+    B, S, H, D = q.shape
+    i = np.arange(S, dtype=np.int64)
+    seen = np.minimum(i + 1, window) if window else i + 1
+    pairs = int(seen.sum()) * B * H
+    isz = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * isz + B * H * S * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * D * pairs / PEAK_OPS_PER_S[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), pairs
+
+
+def flash_inputs(B, S, H, KV, D, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to(dev, dtype) for s in
+            [(B, S, H, D), (B, S, KV, D), (B, S, KV, D)]]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def flash_grads_check(q, k, v, kw) -> dict:
+    """Gradients through K3's autograd Function (K3 forward, plain
+    backward) against the plain backward fed the plain forward's out and
+    lse, for one seeded dout. Returns each gradient's error relative to
+    its largest magnitude."""
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=q.device).manual_seed(7), device=q.device).to(q.dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, dout)
+    out, lse = flash_attention_plain(q, k, v, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    return {n: rel_err(g, w) for n, g, w in zip("qkv", got, want)}
+
+
+def sdpa_flash_call(q, k, v, window):
+    """The library yardstick for K3 on a layer without softcap: one
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and an explicit
+    band mask, inputs transposed beforehand (not timed). Timed only; the
+    port never calls it."""
+    S = q.shape[1]
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def flash_kernel_phase(dev) -> dict:
+    """K3 against its plain version: f32 on the reference test's cases
+    and the smoke heads, then f32 and bf16 at the training shapes,
+    forward (out and lse) and backward through the Function, each timed
+    (K3, plain, SDPA where one call computes the same function); the
+    bf16 times go to the kernels line."""
+    errs = {}
+    for i, (B, S, H, KV, D, window, softcap) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(B, S, H, KV, D, torch.float32, dev, seed=i)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got, glse = flash_attention_forward(q, k, v, **kw)
+        want, wlse = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item(),
+                  (glse - wlse).abs().max().item())
+        assert err <= F32_ATOL, (i, err)
+        errs[f"f32_case{i}"] = err
+        g = flash_grads_check(q, k, v, kw)
+        assert max(g.values()) <= GRAD_RTOL[torch.float32], (i, g)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timings = {}
+    for name, shp in FLASH_SHAPES.items():
+        kw = dict(causal=True, window=shp["window"],
+                  softcap=shp["softcap"])
+        dims = [shp[x] for x in ("B", "S", "H", "KV", "D")]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(*dims, dtype, dev, seed=1)
+            got, glse = flash_attention_forward(q, k, v, **kw)
+            want, wlse = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+            err = (got.float() - want.float()).abs().max().item()
+            lse_err = (glse - wlse).abs().max().item()
+            assert err <= atol and lse_err <= 1e-3, (name, dtype, err,
+                                                    lse_err)
+            grads = flash_grads_check(q, k, v, kw)
+            assert max(grads.values()) <= GRAD_RTOL[dtype], (name, grads)
+            tag = str(dtype).split(".")[-1]
+            errs[f"{tag}_{name}"] = err
+            bound_ms, bound_by, pairs = flash_bound(q, k, shp["window"])
+            t = {"kernel_ms": time_ms(lambda: flash_attention_forward(
+                     q, k, v, **kw), 5, flush),
+                 "plain_ms": time_ms(lambda: flash_attention_plain(
+                     q, k, v, **kw), 2, flush),
+                 "library_ms": (time_ms(sdpa_flash_call(
+                     q, k, v, shp["window"]), 5, flush)
+                     if shp["softcap"] is None else None),
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+            emit("kernel", name="flash_attention", dtype=tag, shape=shp,
+                 visible_pairs=pairs, max_abs_err=err, lse_max_abs_err=
+                 lse_err, atol=atol, grad_rel_err=grads,
+                 grad_rtol=GRAD_RTOL[dtype], **t)
+            if dtype == torch.bfloat16:
+                timings[name] = {**t, "max_abs_err": err}
+            del q, k, v, got, want, glse, wlse
+    emit("kernel_check", name="flash_attention", max_abs_err=errs,
+         f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
+    main = timings["recurrentgemma_L"]
+    return {**main, "max_abs_err": max(errs.values()),
+            "gemma2_G": timings["gemma2_G"]}
+
+
+def rglru_kernel_phase(dev) -> dict:
+    """K5 against its plain version, forward and reverse mode: small
+    ragged cases, then the training shape B=2, T=4096, W=4096 (fp32),
+    timed. Kernel and plain round alike, so they should agree exactly."""
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for B, T, W in ((1, 64, 128), (2, 200, 256), (3, 33, 128), (2, 7, 100),
+                    (2, 4096, 4096)):
+        a = torch.sigmoid(torch.randn((B, T, W), generator=g, device=dev))
+        b = torch.randn((B, T, W), generator=g, device=dev)
+        dy = torch.randn((B, T, W), generator=g, device=dev)
+        y, h = rglru_scan(a, b)
+        wy, wh = rglru_scan_plain(a, b)
+        da, db = rglru_scan_reverse(a, y, dy)
+        wda, wdb = rglru_scan_bwd_plain(a, wy, dy)
+        torch.cuda.synchronize()
+        err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
+        rev_err = max((da - wda).abs().max().item(),
+                      (db - wdb).abs().max().item())
+        assert err <= 1e-6 * wy.abs().max().item(), (B, T, W, err)
+        assert rev_err <= 1e-6 * max(wda.abs().max().item(),
+                                     wdb.abs().max().item()), rev_err
+        errs[f"B{B}T{T}W{W}"] = [err, rev_err]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    t = {"kernel_ms": time_ms(lambda: rglru_scan(a, b), 20, flush),
+         "plain_ms": time_ms(lambda: rglru_scan_plain(a, b), 2, flush),
+         "reverse_kernel_ms": time_ms(lambda: rglru_scan_reverse(a, y, dy),
+                                      20, flush),
+         "reverse_plain_ms": time_ms(lambda: rglru_scan_bwd_plain(a, y, dy),
+                                     2, flush),
+         "library_ms": None, "library": "none: no single PyTorch call "
+         "computes a linear recurrence",
+         # bytes bound both ways, each array moved once: a, b read and y
+         # written; reverse: a, dy, y read and da, db written
+         "bound_ms": 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes",
+         "reverse_bound_ms": 5 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+    emit("kernel", name="rglru_scan", dtype="float32",
+         shape={"B": 2, "T": 4096, "W": 4096}, max_abs_err=errs, **t)
+    return {**t, "max_abs_err": max(max(e) for e in errs.values())}
 
 
 # --------------------------------------------------------------- serve
@@ -657,6 +874,16 @@ def _slice(tree, n):
             for k, v in tree.items()}
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """{kernel name: device ms} of a finished torch.profiler run."""
+    by_name = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            by_name[e.key] = (by_name.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3)
+    return by_name
+
+
 def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
                   cap_blocks=96) -> None:
     """Where a serve step's time goes: a short run of a path's shape under
@@ -670,11 +897,7 @@ def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
                                cap_blocks=cap_blocks, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            by_name[e.key] = (by_name.get(e.key, 0.0)
-                              + e.self_device_time_total / 1e3)
+    by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         emit("profile", config=cfg.arch, device_time="not measured: the "
@@ -692,6 +915,184 @@ def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
          **{f"{kernel}_ms": kernel_ms,
             f"{kernel}_share": kernel_ms / busy_ms},
          gemm_ms=total(lambda n: any(g in n for g in GEMM_NAMES)),
+         top_kernels=[[n[:80], t] for n, t in top])
+
+
+# --------------------------------------------------------------- train
+
+
+def smoke_train(cfg, params, dev, batches, oc):
+    """Losses of ``len(batches)`` train steps from a copy of ``params``
+    on ``dev``."""
+    params = tree_map(lambda t: t.to(dev).clone(), params)
+    state = {"params": params, "opt": adamw_init(params)}
+    step = build_train_step(cfg, TrainConfig(opt=oc))
+    losses = []
+    for b in batches:
+        state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in b.items()})
+        losses.append(m["loss"].item())
+    return losses
+
+
+def train_parity_phase(dev) -> None:
+    """The smoke configs in f32, 3 steps from the same weights and the
+    loader's batches: the card (K3 for every attention, K5 for every R
+    layer) against the CPU (the reference's routes, plain versions);
+    losses within ``TRAIN_LOSS_RTOL`` relative."""
+    oc = OptConfig(total_steps=3, warmup_steps=1)
+    for arch in ("qwen2_7b", "gemma2_27b", "recurrentgemma_9b"):
+        cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
+        params = init_params(model_spec(cfg),
+                             torch.Generator().manual_seed(0), "cpu",
+                             dtype=torch.float32)
+        loader = TrainLoader(LoaderConfig(global_batch=2, seq_len=64,
+                                          vocab=cfg.vocab, seed=0))
+        batches = [loader.build_batch(i) for i in range(3)]
+        cpu = smoke_train(cfg, params, "cpu", batches, oc)
+        card, launches = counted(
+            lambda: smoke_train(cfg, params, dev, batches, oc))
+        assert launches["flash_attention"] > 0, launches
+        if "R" in cfg.layer_pattern:
+            assert launches["rglru_scan"] > 0, launches
+            assert launches["rglru_scan_reverse"] > 0, launches
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        assert rel <= TRAIN_LOSS_RTOL, (arch, card, cpu)
+        emit("train_parity", config=f"{arch} smoke f32", steps=3,
+             seq_len=64, batch=2, losses_card=card, losses_cpu=cpu,
+             max_rel_diff=rel, rtol=TRAIN_LOSS_RTOL,
+             kernel_launches=launches)
+
+
+def train_phase(dev) -> dict:
+    """The training path at full width: recurrentgemma-9b cut to 5 layers,
+    bf16, seeded random weights, 4 AdamW steps at batch 2 x 4096 through
+    ``build_train_step``. Returns the launches of K3 and K5 in the run."""
+    cfg = configs.get("recurrentgemma_9b").replace(n_layers=5)
+    tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
+    n_steps, B, S = 4, 2, 4096
+    expect = {"flash_attention": 2, "rglru_scan": 6,
+              "rglru_scan_reverse": 4}          # a step, by the layout
+    t0 = time.time()
+    state = make_train_state(cfg, tc, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for _, t in tree_paths(state["params"]))
+    loader = TrainLoader(LoaderConfig(global_batch=B, seq_len=S,
+                                      vocab=cfg.vocab, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in loader.build_batch(i).items()}
+               for i in range(n_steps + 1)]
+    step_fn = build_train_step(cfg, tc)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+
+    def run():
+        nonlocal state
+        for i in range(n_steps):
+            before = {k.__name__: k.launches for k in COUNTED}
+            t = time.time()
+            state, m = step_fn(state, batches[i])
+            torch.cuda.synchronize()
+            ms = (time.time() - t) * 1e3
+            steps.append({
+                "step": i, "loss": m["loss"].item(),
+                "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item(),
+                "ms": ms, "tokens_per_s": B * S / ms * 1e3,
+                "launches": {k.__name__: k.launches - before[k.__name__]
+                             for k in COUNTED if k.launches
+                             - before[k.__name__]}})
+
+    _, counts = counted(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for st in steps:
+        assert math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+    for name, n in expect.items():
+        assert counts[name] == n * n_steps, (counts, expect)
+    emit("train", config="recurrentgemma_9b full width (d_model 4096, 16 "
+         "heads, MQA, d_head 256, d_ff 12288, vocab 256000, window 2048, "
+         "lru width 4096), 5 layers (RRL + RR tail), bf16, random weights "
+         "(seed 0)", params=n_params, init_s=init_s, batch=B, seq_len=S,
+         steps=steps, kernel_launches=counts,
+         expected_launches_per_step=expect, max_memory_allocated=peak)
+
+    layer_check(cfg, state, batches[n_steps])
+    profile_train(cfg, step_fn, state, batches[n_steps])
+    return counts
+
+
+def layer_check(cfg, state, batch) -> None:
+    """One forward at the trained weights and a fresh batch: every K3 and
+    K5 call held to its plain version on the same inputs (the kernel's
+    output carried on), within ``LAYER_RTOL`` of the layer's scale; then
+    the whole loss by the kernel route and by the plain route, printed
+    (a random deep net turns one ulp into large logit moves, so that
+    difference is not asserted)."""
+    errs = {"flash_attention": [], "rglru_scan": []}
+
+    def k3(q, k, v, **kw):
+        got = flash_attention(q, k, v, **kw)
+        errs["flash_attention"].append(
+            rel_err(got, flash_attention_plain(q, k, v, **kw)[0]))
+        return got
+
+    def k5(a, b):
+        y, h = rglru_scan(a, b)
+        errs["rglru_scan"].append(rel_err(y, rglru_scan_plain(a, b)[0]))
+        return y, h
+
+    with torch.no_grad():
+        with mock.patch.object(model_layers, "flash_attention", k3), \
+                mock.patch.object(model_recurrent, "_rglru_scan_kernel", k5):
+            loss_kernel = loss_fn(cfg, state["params"], batch).item()
+        with mock.patch.object(model_layers, "flash_attention",
+                               lambda q, k, v, **kw: flash_attention_plain(
+                                   q, k, v, **kw)[0]), \
+                mock.patch.object(model_recurrent, "_rglru_scan_kernel",
+                                  rglru_scan_plain):
+            loss_plain = loss_fn(cfg, state["params"], batch).item()
+    assert len(errs["flash_attention"]) == 1, errs
+    assert len(errs["rglru_scan"]) == 4, errs
+    for name, e in errs.items():
+        assert max(e) <= LAYER_RTOL[name], (name, e)
+    emit("train_layers", what="recurrentgemma_9b 5 layers, bf16, trained "
+         "weights, fresh batch 2 x 4096: each layer's kernel output "
+         "against its plain version on the same inputs",
+         rel_err=errs, rtol=LAYER_RTOL, loss_kernel_route=loss_kernel,
+         loss_plain_route=loss_plain,
+         loss_abs_diff=abs(loss_kernel - loss_plain))
+
+
+def profile_train(cfg, step_fn, state, batch) -> None:
+    """Where a train step's time goes: one step under torch.profiler,
+    CUDA activity only. Device busy share = summed kernel time / wall."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0:
+        emit("profile", config=cfg.arch, device_time="not measured: the "
+             "profiler recorded no device activity", wall_ms=wall_ms)
+        return
+
+    def total(pred):
+        return sum(t for n, t in by_name.items() if pred(n.lower()))
+    k3_ms = total(lambda n: "flash_attention_kernel" in n)
+    k5_ms = total(lambda n: "rglru_" in n)
+    gemm_ms = total(lambda n: any(g in n for g in GEMM_NAMES))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit("profile", config=f"{cfg.arch} 5 layers", run="one train step, "
+         "batch 2 x 4096", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / wall_ms,
+         flash_attention_ms=k3_ms, flash_attention_share=k3_ms / busy_ms,
+         rglru_scan_ms=k5_ms, rglru_scan_share=k5_ms / busy_ms,
+         gemm_ms=gemm_ms, gemm_share=gemm_ms / busy_ms,
          top_kernels=[[n[:80], t] for n, t in top])
 
 
@@ -723,11 +1124,19 @@ def main() -> int:
                 or "spill" in ln])
     k1 = kernel_phase(dev)
     k2 = decode_kernel_phase(dev)
+    k3 = flash_kernel_phase(dev)
+    k5 = rglru_kernel_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     parity_phase(dev)
+    train_parity_phase(dev)
     k1_launches = serve_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # the qwen2 weights go before gemma2's
     k2_launches = gather_serve_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()       # gemma2's 54.5 GB go before training
+    train_launches = train_phase(dev)
     k1_entry = kernel_entry("paged_attention",
                             "src/repro/kernels/paged_attention.py:41",
                             k1_launches, k1)
@@ -740,7 +1149,25 @@ def main() -> int:
     k2_entry.update(tpu_kernel="src/repro/kernels/decode_attention.py:"
                     "_decode_kernel", shape="B=8 H=32 KV=16 D=128 S=128 "
                     "ragged, bf16", S4096=k2["S4096"])
-    print(json.dumps({"kernels": [k1_entry, k2_entry]}), flush=True)
+    k3_entry = kernel_entry("flash_attention",
+                            "src/repro/kernels/flash_attention.py:35",
+                            train_launches["flash_attention"], k3)
+    k3_entry.update(tpu_kernel="src/repro/kernels/flash_attention.py:"
+                    "_flash_kernel", shape="recurrentgemma L layer: B=2 "
+                    "S=4096 H=16 KV=1 D=256 window 2048, bf16",
+                    gemma2_G=k3["gemma2_G"])
+    k5_entry = kernel_entry("rglru_scan",
+                            "src/repro/kernels/rglru_scan.py:28",
+                            train_launches["rglru_scan"]
+                            + train_launches["rglru_scan_reverse"], k5)
+    k5_entry.update(tpu_kernel="src/repro/kernels/rglru_scan.py:"
+                    "_rglru_kernel", shape="B=2 T=4096 W=4096, fp32",
+                    launches_forward=train_launches["rglru_scan"],
+                    launches_reverse=train_launches["rglru_scan_reverse"],
+                    reverse_ms=k5["reverse_kernel_ms"],
+                    reverse_plain_ms=k5["reverse_plain_ms"])
+    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k5_entry]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
-It mirrors ``repro``'s layout and names (configs, core, obs, models,
-kernels, serve, launch) and imports nothing of ``repro`` or JAX: every
+It mirrors ``repro``'s layout and names (configs, core, obs, data, models,
+kernels, serve, train, launch) and imports nothing of ``repro`` or JAX: every
 module it needs keeps its own copy here. The JAX package is the reference
-the tests hold this one against. Ported so far: paged serving of a
-global-attention model under the LERC prefix cache, with the hand-written
-CUDA paged-attention kernel (``kernels.paged_attention``).
+the tests hold this one against. Ported so far: serving under the LERC
+prefix cache on the paged and gather planes (hand-written CUDA paged
+attention and flash-decoding), and training of G, L and R (RG-LRU) layer
+models (hand-written CUDA flash attention and RG-LRU scan); ``kernels``
+lists them.
 """

@@ -3,7 +3,7 @@
 
 Each ``<arch>.py`` exposes ``full()`` (the exact published config) and
 ``smoke()`` (same family, reduced), with the numbers copied from the
-reference. Only the architectures the port serves are listed.
+reference. Only the architectures the port runs are listed.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from ..models.common import ModelConfig
 ARCH_IDS = [
     "gemma2_27b",
     "qwen2_7b",
+    "recurrentgemma_9b",
 ]
 
 

@@ -1,9 +1,27 @@
 """repro_torch.kernels — hand-written Hopper kernels, each beside its plain
-PyTorch version. ``paged_decode_attention`` and ``decode_attention`` launch
-their CUDA kernels on CUDA tensors and run ``paged_attention_plain`` and
-``decode_attention_plain`` on CPU tensors."""
+PyTorch version. On CUDA tensors each wrapper launches its CUDA kernel (or
+raises); on CPU tensors it runs the plain version:
+
+* ``paged_decode_attention`` / ``paged_attention_plain`` — paged decode
+  and chunk attention out of the KV pool (serving, paged plane);
+* ``decode_attention`` / ``decode_attention_plain`` — flash-decoding
+  against contiguous caches (serving, gather plane);
+* ``flash_attention`` / ``flash_attention_plain`` — the training and
+  prefill forward's self-attention (``flash_attention_forward``: the same
+  route without autograd, returning the log-sum-exp too); its backward is
+  plain PyTorch (``flash_attention_bwd_plain``);
+* ``rglru_scan`` / ``rglru_scan_plain`` — the RG-LRU recurrence of the
+  training forward, forward and reverse (backward) mode
+  (``rglru_scan_bwd_plain``)."""
 from .decode_attention import decode_attention, decode_attention_plain
+from .flash_attention import (flash_attention, flash_attention_bwd_plain,
+                              flash_attention_forward, flash_attention_plain)
 from .paged_attention import paged_attention_plain, paged_decode_attention
+from .rglru_scan import (rglru_scan, rglru_scan_bwd_plain, rglru_scan_plain,
+                         rglru_scan_reverse)
 
 __all__ = ["paged_decode_attention", "paged_attention_plain",
-           "decode_attention", "decode_attention_plain"]
+           "decode_attention", "decode_attention_plain",
+           "flash_attention", "flash_attention_forward",
+           "flash_attention_plain", "flash_attention_bwd_plain", "rglru_scan", "rglru_scan_plain",
+           "rglru_scan_bwd_plain", "rglru_scan_reverse"]

@@ -41,7 +41,13 @@ class ModelConfig:
     attn_logit_softcap: Optional[float] = None   # gemma2: 50.0
     final_logit_softcap: Optional[float] = None  # gemma2: 30.0
     rope_theta: float = 10_000.0
-    attn_impl: str = "auto"         # auto | xla | chunked
+    attn_impl: str = "auto"         # no-cache (training/prefill) attention:
+                                    # "auto" takes the flash-attention CUDA
+                                    # kernel on CUDA tensors and, on CPU
+                                    # tensors, the reference's rule: _sdpa up
+                                    # to 2048 tokens, chunked_attention above;
+                                    # "xla" (_sdpa) and "chunked"
+                                    # (chunked_attention) on either device
     attn_q_chunk: int = 2048        # chunked-attention tile sizes
     attn_kv_chunk: int = 2048
     exact_causal: bool = True       # prune upper-triangle chunks
@@ -77,6 +83,15 @@ class ModelConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def lru_width(self) -> int:
+        return self.rnn_width or self.d_model
+
+    def pattern_layers(self) -> Tuple[str, ...]:
+        """Per-layer kind for all n_layers, repeating ``layer_pattern``."""
+        p = self.layer_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -118,6 +133,18 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def unflatten(flat):
+    """The nested-dict tree of a ``{path_tuple: leaf}`` dict (the inverse
+    of ``dict(tree_paths(tree))``)."""
+    tree = {}
+    for path, leaf in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 def init_params(spec_tree, generator: torch.Generator,

@@ -3,10 +3,12 @@ attention layer and the MLP; mirrors ``src/repro/models/layers.py``. Plain
 functions over param dicts of tensors; fp32 where numerics demand it
 (norms, softmax, rope), the model dtype elsewhere.
 
-Ported so far: the dense layers and the decode modes of ``attention``:
-paged (chunk written into pool rows, attention out of the pool), and the
-gather plane's per-slot and bulk modes over contiguous caches. The
-training and cross-attention modes are not ported yet.
+Ported so far: the dense layers; the training/prefill mode of
+``attention`` (no cache: the flash-attention kernel on CUDA, ``_sdpa`` or
+``chunked_attention`` on CPU); and its decode modes: paged (chunk written
+into pool rows, attention out of the pool), and the gather plane's
+per-slot and bulk modes over contiguous caches. The cross-attention mode
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import (decode_attention, decode_attention_plain,
-                       paged_attention_plain, paged_decode_attention)
+                       flash_attention, paged_attention_plain,
+                       paged_decode_attention)
+from .attention import chunked_attention
 from .common import ModelConfig, p
 
 # ---------------------------------------------------------------------------
@@ -141,6 +145,50 @@ def causal_mask(Sq: int, Skv: int, q_offset=0, window: Optional[int] = None,
     return m[None, None]
 
 
+def _use_chunked(cfg: ModelConfig, Sq: int) -> bool:
+    if cfg.attn_impl == "chunked":
+        return True
+    if cfg.attn_impl == "xla":
+        return False
+    return Sq > 2048  # auto: full logits past 2k are prohibitive
+
+
+def _self_attention(cfg: ModelConfig, q, k, v, *, window, bidirectional,
+                    prefix_len):
+    """Training/prefill attention of (B,S,H,D) queries against the same
+    positions' (B,S,KV,D) keys and values. ``attn_impl="auto"`` on CUDA
+    tensors takes the flash-attention kernel (causal only: no encoder or
+    image prefix is ported); otherwise the reference's rule: ``_sdpa``
+    with a dense mask, or ``chunked_attention``."""
+    Sq = q.shape[1]
+    if cfg.attn_impl == "auto" and q.device.type == "cuda":
+        if bidirectional or prefix_len:
+            raise NotImplementedError(
+                "the flash-attention kernel route is causal self-attention "
+                "only: bidirectional and prefix attention are not ported")
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True, window=window,
+                               softcap=cfg.attn_logit_softcap)
+    if _use_chunked(cfg, Sq):
+        return chunked_attention(
+            q, k, v, causal=not bidirectional, window=window,
+            softcap=cfg.attn_logit_softcap, prefix_len=prefix_len,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+            exact_causal=cfg.exact_causal)
+    if bidirectional:
+        mask = torch.ones((1, 1, Sq, Sq), dtype=torch.bool, device=q.device)
+    else:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sq, device=q.device)[None, :]
+        m = kpos <= qpos
+        if window is not None:
+            m &= kpos > qpos - window
+        if prefix_len:
+            m |= kpos < prefix_len
+        mask = m[None, None]
+    return _sdpa(cfg, q, k, v, mask)
+
+
 def _paged_attention(cfg: ModelConfig, q, k_pages, v_pages, tables, qpos):
     """Attention for a (B,Sq,H,D) query chunk straight out of KV pool
     pages (num_blocks, bt, KV, D); block ``i`` of ``tables[b]`` backs
@@ -206,12 +254,18 @@ def _write_bulk(cache, start, val) -> None:
     cache[:, s0:s0 + Sq] = val
 
 
-def attention(cfg: ModelConfig, params, x, *, positions, cache: Dict,
-              cache_pos, cache_valid_len=None,
-              paged: Optional[Dict] = None):
-    """Attention layer (proj → rope → write + attend → proj) in its decode
-    modes; the caches are written IN PLACE (the reference returns new
-    ones). Returns (out, cache).
+def attention(cfg: ModelConfig, params, x, *, positions, window=None,
+              cache: Optional[Dict] = None, cache_pos=None,
+              cache_valid_len=None, paged: Optional[Dict] = None,
+              bidirectional: bool = False, prefix_len: int = 0):
+    """Attention layer (proj → rope → attend → proj). Returns (out, cache).
+
+      * training/prefill: ``cache=None``; causal (or bidirectional)
+        self-attention over the chunk with an optional sliding ``window``,
+        routed by ``_self_attention``. Returns (out, None).
+
+    The decode modes write the caches IN PLACE (the reference returns new
+    ones):
 
       * paged: ``cache`` = {"k","v"} per-layer KV *pool* views
         (num_blocks, bt, KV, D) and ``paged`` = {"tables": (B, NW) pool
@@ -235,6 +289,11 @@ def attention(cfg: ModelConfig, params, x, *, positions, cache: Dict,
     q, k, v = _qkv(cfg, params, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = _self_attention(cfg, q, k, v, window=window,
+                              bidirectional=bidirectional,
+                              prefix_len=prefix_len)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
     if paged is not None:
         out, ck, cv = _paged_write_attend(cfg, q, k, v, cache["k"],
                                           cache["v"], paged["tables"],

@@ -7,19 +7,23 @@ each unit are stacked with a leading repeat axis (``params["stack"]
 explicit tail, exactly as in the reference's parameter tree. Where the
 reference scans over the repeat axis, the port loops over it.
 
-Layer kinds ported so far: G (global attention + dense MLP) and L (local,
-rolling-window attention + dense MLP), through the decode step on both
-data planes: paged (G only) and gather. The M/R/W kinds and the training
-forward raise ``NotImplementedError``.
+Layer kinds ported so far: G (global attention + dense MLP), L (local,
+windowed attention + dense MLP) and R (RG-LRU recurrent block + dense
+MLP). The training/prefill forward ``lm_forward`` and ``lm_loss`` run all
+three; the decode step runs G and L on both data planes: paged (G only)
+and gather. The M and W kinds, and R in decode, raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .common import ModelConfig, ParamSpec, tree_map
+from .recurrent import rglru_block, rglru_block_spec
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -27,6 +31,13 @@ from .common import ModelConfig, ParamSpec, tree_map
 
 
 def _sublayer_spec(cfg: ModelConfig, kind: str) -> Dict:
+    if kind == "R":
+        return {
+            "ln1": L.norm_spec(cfg),
+            "rec": rglru_block_spec(cfg),
+            "ln2": L.norm_spec(cfg),
+            "mlp": L.mlp_spec(cfg),
+        }
     if kind not in ("G", "L"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     d_ff = None
@@ -81,13 +92,26 @@ def _unit_keys(pat: str) -> List[str]:
 # ---------------------------------------------------------------------------
 
 
-def _apply_sublayer(cfg: ModelConfig, prm, h, *, positions, cache,
-                    cache_pos, cache_valid_len, paged):
-    """One G or L sublayer in decode; the layer's cache (or pool pages)
-    in ``cache`` is written in place. Returns h."""
+def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
+                    cache=None, cache_pos=None, cache_valid_len=None,
+                    paged=None):
+    """One G, L or R sublayer. Without ``cache`` the training/prefill form
+    (L and R layers see ``cfg.window``); with it a G or L decode, which
+    writes the layer's cache (or pool pages) in place. Returns h."""
+    if kind == "R":
+        if cache is not None:
+            raise NotImplementedError(
+                "R layers have no ported decode: only the training/prefill "
+                "forward runs them")
+        x = L.norm(cfg, prm["ln1"], h)
+        rec_out, _ = rglru_block(cfg, prm["rec"], x)
+        h = h + rec_out
+        return h + L.mlp(cfg, prm["mlp"], L.norm(cfg, prm["ln2"], h))
+    window = cfg.window if kind == "L" else None
     x = L.norm(cfg, prm["ln1"], h)
     attn_out, _ = L.attention(cfg, prm["attn"], x, positions=positions,
-                              cache=cache, cache_pos=cache_pos,
+                              window=window, cache=cache,
+                              cache_pos=cache_pos,
                               cache_valid_len=cache_valid_len, paged=paged)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
@@ -96,6 +120,51 @@ def _apply_sublayer(cfg: ModelConfig, prm, h, *, positions, cache,
     if cfg.post_norms:
         ff = L.norm(cfg, prm["ln2_post"], ff)
     return h + ff
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def lm_forward(cfg: ModelConfig, params, tokens, *,
+               last_logit_only: bool = False):
+    """tokens: (B,S) int. Returns logits (B,S,vocab), or (B,1,vocab) with
+    ``last_logit_only``. Each repeat of the stacked unit runs under
+    activation checkpointing (``torch.utils.checkpoint``, non-reentrant),
+    where the reference wraps its scan body in ``jax.checkpoint``: its
+    inputs are kept and its inside is recomputed in the backward. The tail
+    layers are not checkpointed, as in the reference."""
+    pat, n_rep, tail = unit_pattern(cfg)
+    unported = set(pat + tail) - {"G", "L", "R"}
+    if unported:
+        raise NotImplementedError(
+            f"the port's forward covers G, L and R layers; layer kinds "
+            f"{sorted(unported)} are not ported")
+    h = L.embed(cfg, params["embed"], tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+
+    def unit(h, prm_r):
+        for key in _unit_keys(pat):
+            h = _apply_sublayer(cfg, key.split("_")[1], prm_r[key], h,
+                                positions=positions)
+        return h
+
+    if n_rep > 0:
+        # one unbind per stacked leaf: its backward stacks the layers'
+        # gradients once
+        layers = tree_map(lambda t: t.unbind(0), params["stack"])
+        for li in range(n_rep):
+            h = checkpoint(unit, h, tree_map(lambda ts: ts[li], layers),
+                           use_reentrant=False)
+    for i, k in enumerate(tail):
+        h = _apply_sublayer(cfg, k, params[f"tail_{i}_{k}"], h,
+                            positions=positions)
+    if last_logit_only:
+        h = h[:, -1:]
+    h = L.norm(cfg, params["ln_f"], h)
+    return L.unembed(cfg, params["embed"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +258,7 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         return pos + 1
 
     def apply(kind, prm, layer_cache, h):
-        return _apply_sublayer(cfg, prm, h, positions=positions,
+        return _apply_sublayer(cfg, kind, prm, h, positions=positions,
                                cache=layer_cache,
                                cache_pos=sub_cache_pos(kind),
                                cache_valid_len=sub_valid_len(kind),
@@ -212,3 +281,20 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         h = h[torch.arange(B, device=h.device), last][:, None]
     h = L.norm(cfg, params["ln_f"], h)
     return L.unembed(cfg, params["embed"], h), cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ModelConfig, logits, targets, mask=None):
+    """Next-token cross entropy; fp32 log-softmax. targets already shifted."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,0 +1,83 @@
+"""Train-step builder: loss and gradients → (optional) microbatch
+accumulation in fp32 → AdamW; mirrors ``src/repro/train/step.py``.
+
+Where the reference jits a pure function of the state, the port's step
+runs eagerly and updates the state's parameters and moments in place
+(``optimizer.adamw_update``); it returns the same state dict. Gradients
+come from ``torch.autograd.grad`` on detached leaves, so the parameters
+carry no ``.grad``. Cross-pod gradient compression is not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+import torch
+
+from ..models import init_params, loss_fn, model_spec
+from ..models.common import ModelConfig, tree_paths, unflatten
+from .optimizer import OptConfig, adamw_init, adamw_update
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    opt: OptConfig = field(default_factory=OptConfig)
+    microbatches: int = 1           # gradient accumulation steps
+    compress_pod_grads: bool = False
+
+
+def _check(tc: TrainConfig) -> None:
+    if tc.compress_pod_grads:
+        raise NotImplementedError(
+            "cross-pod gradient compression is not ported")
+
+
+def make_train_state(cfg: ModelConfig, tc: TrainConfig,
+                     generator: torch.Generator,
+                     device: torch.device | str) -> Dict[str, Any]:
+    """Seeded parameters (``init_params`` from ``generator``, which lives
+    on ``device``) in the model dtype and zero AdamW moments."""
+    _check(tc)
+    params = init_params(model_spec(cfg), generator, device, dtype=cfg.dtype)
+    return {"params": params, "opt": adamw_init(params, tc.opt)}
+
+
+def build_train_step(cfg: ModelConfig, tc: TrainConfig):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
+    holds (B, S) int tensors on the parameters' device, and metrics are
+    0-d tensors {"loss", "grad_norm", "lr"}."""
+    _check(tc)
+
+    def value_and_grad(params, batch):
+        """(loss, {path: gradient}) of one (micro)batch."""
+        leaves = {path: t.detach().requires_grad_(True)
+                  for path, t in tree_paths(params)}
+        loss = loss_fn(cfg, unflatten(leaves), batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def compute_grads(params, batch):
+        k = tc.microbatches
+        if k <= 1:
+            loss, grads = value_and_grad(params, batch)
+            return loss, unflatten(grads)
+        loss_sum, gsum = 0.0, {}
+        for i in range(k):
+            mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                  for n, x in batch.items()}
+            loss, grads = value_and_grad(params, mb)
+            loss_sum = loss_sum + loss
+            for path, g in grads.items():
+                gsum[path] = (gsum[path] + g.float() if path in gsum
+                              else g.float())
+        return loss_sum / k, unflatten({path: g / k
+                                        for path, g in gsum.items()})
+
+    def train_step(state, batch):
+        loss, grads = compute_grads(state["params"], batch)
+        params, opt, stats = adamw_update(tc.opt, state["params"], grads,
+                                          state["opt"])
+        state["params"], state["opt"] = params, opt
+        return state, {"loss": loss, **stats}
+
+    return train_step

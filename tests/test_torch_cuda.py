@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (paged attention, flash-decoding) against their
-plain versions, on the card. These tests need a GPU and nvcc; elsewhere
-they skip. Run them on the card with
+"""The port's CUDA kernels (paged attention, flash-decoding, flash
+attention, the RG-LRU scan) against their plain versions, on the card.
+These tests need a GPU and nvcc; elsewhere they skip. Run them on the
+card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -9,10 +10,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
-                                 decode_attention_plain,
+                                 decode_attention_plain, flash_attention,
+                                 flash_attention_bwd_plain,
+                                 flash_attention_forward,
+                                 flash_attention_plain,
                                  paged_attention_plain,
-                                 paged_decode_attention)
+                                 paged_decode_attention, rglru_scan,
+                                 rglru_scan_bwd_plain, rglru_scan_plain,
+                                 rglru_scan_reverse)
+from repro_torch.models import (init_params, loss_fn,  # noqa: E402
+                                model_spec, tree_paths)
+from repro_torch.models.common import unflatten  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +160,184 @@ def test_decode_wrapper_raises_on_what_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         decode_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
                          v[..., :12].contiguous(), valid)
+
+
+# (B, S, H, KV, D, window, softcap): the CPU test's cases (the reference
+# test's), the smoke configs' heads (qwen2 G=7 of D=8, gemma2 D=16 with
+# window 8 and softcap 50, recurrentgemma MQA of D=32 with window 16),
+# the training shapes' heads at a short S (recurrentgemma D=256 MQA G=16
+# with a window, gemma2 D=128 softcap), a ragged S below one tile and a
+# window of 0 (rows that see nothing)
+FLASH_CASES = [
+    (1, 128, 2, 2, 64, None, None),
+    (2, 256, 4, 1, 64, None, None),
+    (1, 256, 8, 2, 64, None, 50.0),
+    (1, 320, 4, 4, 64, 128, None),
+    (1, 100, 2, 1, 64, 32, 30.0),
+    (2, 40, 7, 1, 8, None, None),
+    (2, 37, 4, 2, 16, 8, 50.0),
+    (2, 64, 2, 1, 32, 16, None),
+    (1, 300, 16, 1, 256, 100, None),
+    (2, 200, 8, 4, 128, None, 50.0),
+    (3, 5, 2, 1, 24, None, None),
+    (1, 70, 2, 2, 64, 0, None),
+]
+
+
+def _flash_inputs(case, dtype, dev, seed):
+    B, S, H, KV, D = case[:5]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to(dev, dtype) for s in
+            [(B, S, H, D), (B, S, KV, D), (B, S, KV, D)]]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+def test_flash_kernel_matches_plain(dev, case, dtype, atol):
+    """Forward: out within atol (f32: fp32 sums in different orders; bf16:
+    one ulp of an output below 2) and the fp32 lse within 1e-4. Backward
+    through the Function (K3's out and lse, the plain backward) against
+    torch autograd of the plain forward, f32: each gradient within 1e-4
+    of its largest magnitude."""
+    window, softcap = case[5], case[6]
+    q, k, v = _flash_inputs(case, getattr(torch, dtype), dev,
+                            seed=sum(case[:5]))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, lse = flash_attention_plain(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    if window == 0:
+        assert not got.any()
+    if dtype == "bfloat16":
+        return
+    _, klse = flash_attention_forward(q, k, v, **kw)
+    assert (klse - lse).abs().max().item() <= 1e-4
+    dout = torch.randn(got.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, **kw), leaves,
+                                dout)
+    ref = torch.autograd.grad(flash_attention_plain(*leaves, **kw)[0],
+                              leaves, dout)
+    for g, r in zip(grads, ref):
+        assert (g - r).abs().max().item() <= 1e-4 * max(
+            r.abs().max().item(), 1e-30)
+
+
+def test_flash_bwd_plain_from_kernel_lse(dev):
+    """The plain backward fed K3's bf16 out and lse at recurrentgemma's
+    L-layer head shape equals the one fed the plain forward's, within
+    bf16 rounding."""
+    case = (1, 256, 16, 1, 256, 64, None)
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=9)
+    dout = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+    outs = [flash_attention_forward(q, k, v, window=64),
+            flash_attention_plain(q, k, v, window=64)]
+    g_kernel, g_plain = (flash_attention_bwd_plain(q, k, v, o, l, dout,
+                                                   window=64)
+                         for o, l in outs)
+    for a, b in zip(g_kernel, g_plain):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_flash_wrapper_raises_on_what_kernel_does_not_take(dev):
+    case = FLASH_CASES[0]
+    q, k, v = _flash_inputs(case, torch.float16, dev, seed=0)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(case, torch.float32, dev, seed=0)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k, v)
+    with pytest.raises(ValueError, match="mixed devices|is on"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                        v[..., :12].contiguous())
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention(q[:, :64].contiguous(), k, v)
+
+
+# (B, T, W): the reference test's cases, a ragged T below and above the
+# kernel's unroll, W not a multiple of its block, and the training shape's
+# width at a short T
+RGLRU_CASES = [(1, 64, 128), (2, 200, 256), (1, 256, 512), (3, 33, 128),
+               (2, 7, 100), (1, 1, 64), (2, 128, 4096)]
+
+
+def _rglru_inputs(B, T, W, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, T, W), generator=g, device=dev))
+    b = torch.randn((B, T, W), generator=g, device=dev)
+    return a, b
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_kernel_matches_plain(dev, case):
+    """Kernel and plain versions round every product and sum on its own,
+    in the same order: forward and reverse mode agree bit for bit."""
+    a, b = _rglru_inputs(*case, dev, seed=sum(case))
+    before = (rglru_scan.launches, rglru_scan_reverse.launches)
+    y, h = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before[0] + 1
+    want_y, want_h = rglru_scan_plain(a, b)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    dy = torch.randn(y.shape, device=dev)
+    da, db = rglru_scan_reverse(a, y, dy)
+    torch.cuda.synchronize()
+    assert rglru_scan_reverse.launches == before[1] + 1
+    want_da, want_db = rglru_scan_bwd_plain(a, want_y, dy)
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+    leaves = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    grads = torch.autograd.grad(rglru_scan(*leaves)[0], leaves, dy)
+    assert torch.equal(grads[0], da) and torch.equal(grads[1], db)
+
+
+def test_rglru_wrapper_raises_on_what_kernel_does_not_take(dev):
+    a, b = _rglru_inputs(2, 16, 64, dev, seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan(a, b[:, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), b)
+    with pytest.raises(ValueError, match="one device"):
+        rglru_scan(a, b.cpu())
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "gemma2_27b",
+                                  "recurrentgemma_9b"])
+def test_loss_and_grads_on_card_match_cpu(dev, arch):
+    """The smoke configs' loss and gradients in f32: the card (K3, K5)
+    against the CPU (the reference's routes, plain versions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0),
+                         "cpu", dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48))
+                                 .astype(np.int32))
+             for k in ("tokens", "targets")}
+    out = {}
+    for where in ("cpu", dev):
+        leaves = {p: t.to(where).requires_grad_(True)
+                  for p, t in tree_paths(params)}
+        loss = loss_fn(cfg, unflatten(leaves),
+                       {k: v.to(where) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[str(where)] = (loss.item(), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()

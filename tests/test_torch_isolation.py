@@ -50,7 +50,8 @@ def test_importing_port_loads_no_jax_or_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
-        "import repro_torch.kernels.build\n"
+        "import repro_torch.launch.train, repro_torch.train\n"
+        "import repro_torch.data, repro_torch.kernels.build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
@@ -64,6 +65,7 @@ def test_entry_points_default_to_the_gpu():
     """No device means the card: without one the engine and the launcher
     raise instead of carrying on on the CPU."""
     from repro_torch.launch.serve import serve_main
+    from repro_torch.launch.train import train_main
     from repro_torch.serve import ServeEngine, resolve_device
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
@@ -73,13 +75,16 @@ def test_entry_points_default_to_the_gpu():
         ServeEngine(cfg, {}, max_slots=1, max_seq=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_main(["--arch", "qwen2_7b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--arch", "recurrentgemma_9b", "--smoke"])
     assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(smoke):
     """Every architecture the port lists, field for field."""
-    assert configs.ARCH_IDS == ["gemma2_27b", "qwen2_7b"]
+    assert configs.ARCH_IDS == ["gemma2_27b", "qwen2_7b",
+                                "recurrentgemma_9b"]
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -90,13 +95,20 @@ def test_configs_equal_reference(smoke):
         assert ref.dtype == jnp.bfloat16 and port.dtype == torch.bfloat16
     assert configs.canonical("qwen2.7b") == "qwen2_7b"
     assert configs.canonical("gemma2-27b") == "gemma2_27b"
+    assert configs.canonical("recurrentgemma-9b") == "recurrentgemma_9b"
+    for arch in configs.ARCH_IDS:
+        ref = jax_configs.get(arch, smoke=smoke)
+        port = configs.get(arch, smoke=smoke)
+        assert port.lru_width == ref.lru_width
+        assert port.pattern_layers() == ref.pattern_layers()
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_param_spec_tree_equals_reference(smoke):
     """Same names, shapes, axes and init rules as the reference's tree,
-    the stacked ``stack/0_G`` (and gemma2's ``stack/0_L``, ``stack/1_G``)
-    layer axes included."""
+    the stacked ``stack/0_G`` (and gemma2's ``stack/0_L``, ``stack/1_G``,
+    recurrentgemma's ``stack/0_R``, ``stack/1_R``, ``stack/2_L`` and its
+    ``tail_*_R``) layer axes included."""
     for arch in configs.ARCH_IDS:
         ref = dict(tree_paths(jax_model_spec(jax_configs.get(arch,
                                                              smoke=smoke))))
@@ -113,3 +125,7 @@ def test_param_spec_tree_equals_reference(smoke):
             (28, 3584, 2, 18944)
         assert shape["gemma2_27b"][("stack", "0_L", "mlp", "wi")].shape == \
             (23, 4608, 2, 36864)
+        rg = shape["recurrentgemma_9b"]
+        assert rg[("stack", "1_R", "rec", "gate_a")].shape == \
+            (12, 16, 256, 256)
+        assert rg[("tail_1_R", "rec", "w_x")].shape == (4096, 4096)
