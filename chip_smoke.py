@@ -17,7 +17,12 @@ exits non-zero:
              kernel of the training forward (forward and, through its
              autograd Function, backward; recurrentgemma's L layer and
              gemma2's G layer at S=4096), K5 the RG-LRU scan (forward and
-             reverse mode at B=2, T=4096, W=4096).
+             reverse mode at B=2, T=4096, W=4096), K4 the RWKV6 WKV
+             (f32 on the reference test's cases and at logw = -5, then
+             bf16 r, k, v at rwkv6-3b's training shape B=2, T=4096,
+             H=16, N=160; the gradients through its Function against
+             autograd of its plain version; the backward's state carry
+             against a plain loop over the chunks).
 4. parity  — the serve engine on the card (kernels) against the same
              engine on the CPU (plain versions), smoke configs in f32: the
              paged plane on qwen2, the gather plane on gemma2 and qwen2.
@@ -35,16 +40,22 @@ exits non-zero:
              every attention is a K2 launch. Then one decode step through
              the plain attention and one through K2 with the rolling
              window wrapped, and a short profiled run.
-7. train   — parity first: the three smoke configs in f32 trained 3
-             steps on the card (K3, K5) and on the CPU (plain routes) from
-             the same weights and batches. Then the training path at full
+7. train   — parity first: the four smoke configs in f32 trained 3
+             steps on the card (K3, K5, K4) and on the CPU (plain routes)
+             from the same weights and batches. Then the training path at full
              width: recurrentgemma-9b cut to 5 layers (one RRL unit and
              the RR tail), bf16, seeded random weights, 4 AdamW steps at
              batch 2 x 4096 tokens through ``build_train_step``, every
              K3 and K5 launch counted; each layer's K3 and K5 outputs
              held to their plain versions at a step's inputs; a profiled
              step.
-8. the kernels line, the card line, and the result line.
+8. train   — rwkv6-3b at full width and full depth (32 W layers, bf16,
+             seeded random weights), 4 AdamW steps at batch 2 x 4096,
+             every K4 launch counted (64 a step: 32 forward and 32
+             checkpoint recomputes); each layer's K4 output held to its
+             plain version; a profiled step; four more steps, the
+             backward's state carry two ways (A B B A).
+9. the kernels line, the card line, and the result line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails.
@@ -70,6 +81,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import LoaderConfig, TrainLoader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  decode_attention_plain, flash_attention,
                                  flash_attention_bwd_plain,
@@ -78,7 +90,9 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  paged_attention_plain,
                                  paged_decode_attention, rglru_scan,
                                  rglru_scan_bwd_plain, rglru_scan_plain,
-                                 rglru_scan_reverse)
+                                 rglru_scan_reverse, rwkv6_wkv,
+                                 rwkv6_wkv_chunked, rwkv6_wkv_forward,
+                                 rwkv6_wkv_plain)
 from repro_torch.models import (init_decode_cache,  # noqa: E402
                                 init_params, lm_decode_step, loss_fn,
                                 model_spec, tree_paths)
@@ -94,9 +108,9 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
 KERNELS = ["paged_attention", "decode_attention", "flash_attention",
-           "rglru_scan"]
+           "rglru_scan", "rwkv6_scan"]
 COUNTED = (paged_decode_attention, decode_attention, flash_attention,
-           rglru_scan, rglru_scan_reverse)
+           rglru_scan, rglru_scan_reverse, rwkv6_wkv)
 PAGED_CASES = [
     # (B, S, H, KV, D, bt, NW, softcap), the reference test's cases
     (2, 1, 4, 2, 64, 8, 8, None),
@@ -146,12 +160,27 @@ FLASH_SHAPES = {
 # gradients through K3's Function against the plain backward from the
 # plain forward: the two differ only by the forward's out and lse, so in
 # f32 by fp32 summation order; in bf16 by one ulp of out, carried through
-# dout . out (relative to each gradient's largest magnitude)
+# dout . out (relative to each gradient's largest magnitude). K4's
+# Function against autograd of its plain version: both in fp32 from the
+# same inputs, by different formulations; bf16 r, k, v get their
+# gradients rounded to bf16, one ulp apart at most
 GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K4's f32 reference cases, (B, T, H, N): the reference test's
+# (tests/test_kernels.py:111-112), run at chunk 16, the largest the kernel
+# takes; then the smoke model's heads (N=4) on a ragged T
+RWKV_CASES = [(1, 64, 2, 32), (2, 96, 4, 64), (1, 50, 2, 16),
+              (1, 128, 2, 128), (2, 40, 16, 4)]
+RWKV_SHAPE = dict(B=2, T=4096, H=16, N=160, C=16)   # rwkv6-3b's train cell
+# K4 against its plain version, max error over the output's largest
+# magnitude: the reference test's bar (both sum in fp32, the kernel with
+# factored decays, the plain version with differences of log decays)
+RWKV_RTOL = 1e-4
 # the training-path kernels per layer at full width, bf16: K3 within one
 # bf16 ulp (2^-7) of the layer output's scale; K5 runs in fp32 and
-# rounds as its plain version does
-LAYER_RTOL = {"flash_attention": 2 ** -7, "rglru_scan": 1e-6}
+# rounds as its plain version does; K4 sums in fp32 from the same bf16
+# inputs, held to its kernel bar
+LAYER_RTOL = {"flash_attention": 2 ** -7, "rglru_scan": 1e-6,
+              "rwkv6_wkv": RWKV_RTOL}
 TRAIN_LOSS_RTOL = 1e-4
 
 
@@ -559,6 +588,173 @@ def rglru_kernel_phase(dev) -> dict:
     return {**t, "max_abs_err": max(max(e) for e in errs.values())}
 
 
+def rwkv_inputs(B, T, H, N, dtype, dev, seed, logw=None):
+    """Seeded r, k, v in ``dtype``; fp32 logw = -exp(a unit normal) in the
+    model's clip range [-5, -1e-6] (about a fifth of it at -5, as in the
+    random rwkv6-3b), or the constant ``logw``; fp32 u."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((B, T, H, N), generator=g, device=dev)
+               for _ in range(3))
+    lw = torch.clamp(-torch.exp(torch.randn((B, T, H, N), generator=g,
+                                            device=dev)), -5.0, -1e-6)
+    if logw is not None:
+        lw.fill_(logw)
+    u = 0.5 * torch.randn((H, N), generator=g, device=dev)
+    return [t.to(dtype) for t in (r, k, v)] + [lw, u]
+
+
+def rwkv_bound(B, T, H, N, C, isz):
+    """Least time for K4: the larger of its operations over the fp32 SIMT
+    peak and its bytes (r, k, v read in their dtype, logw and u read and
+    out and the last state written in fp32, once each) over HBM
+    bandwidth. Operations, for each row and head: 4N for each visible
+    (token t, key j <= t) pair of a chunk (the score's dot product and its
+    product with v; the diagonal's score is r . (u k), N more a token),
+    2N^2 a token for the state update and 2N^2 a token past the first
+    chunk for the carried state's product (the state is zero before).
+    Chunks of C tokens, the last one ragged, as the kernel walks them."""
+    nc = -(-T // C)
+    tail = T - (nc - 1) * C
+    pairs = (nc - 1) * C * (C + 1) // 2 + tail * (tail + 1) // 2
+    ops = B * H * (4 * N * pairs + N * T + 2 * N * N * T
+                   + 2 * N * N * (T - min(C, T)))
+    nbytes = B * T * H * N * (3 * isz + 4 + 4) + H * N * 4 + B * H * N * N * 4
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), ops, nbytes
+
+
+def carry_loop(D, M):
+    """``_carry``'s result by a plain loop over the chunks, S_c = D_c S_{c-1}
+    + M_c: the yardstick for its two-level scan."""
+    S = M.new_zeros(M[:, 0].shape)
+    prev = []
+    for d, m in zip(D.unbind(1), M.unbind(1)):
+        prev.append(S)
+        S = d[..., None] * S + m
+    return torch.stack(prev, dim=1), S
+
+
+def rwkv_grads_check(xs, chunk) -> dict:
+    """Gradients for r, k, v, logw and u through K4's Function (kernel
+    forward, chunk-parallel form recomputed for the backward) against
+    autograd of the plain version (the loop over chunks with decays from
+    differences of log decays, an independent formulation) on the same
+    inputs, for one seeded dout; each relative to the gradient's largest
+    magnitude."""
+    dout = torch.randn(xs[0].shape, generator=torch.Generator(
+        device=xs[0].device).manual_seed(7), device=xs[0].device)
+    grads = []
+    for fn in (rwkv6_wkv, rwkv6_wkv_plain):
+        leaves = [t.detach().requires_grad_(True) for t in xs]
+        grads.append(torch.autograd.grad(fn(*leaves, chunk=chunk)[0],
+                                         leaves, dout))
+    return {n: rel_err(g, w) for n, g, w in zip(
+        ("r", "k", "v", "logw", "u"), *grads)}
+
+
+def carry_timings(xs, C, flush) -> dict:
+    """``_carry`` (two loops of about sqrt(chunks) steps) against
+    ``carry_loop`` (one step a chunk) at the cell's shape: their results,
+    and each one's forward plus backward alone, then the Function's whole
+    backward with each, by CUDA events (device time, host gaps included)
+    and on the host's clock (launch overhead with the card kept busy)."""
+    B, T, H, N = xs[0].shape
+    lw = xs[3].reshape(B, T // C, C, H, N)
+    D = torch.exp(lw.sum(2))
+    M = 0.1 * torch.randn((B, T // C, H, N, N), device=D.device,
+                          generator=torch.Generator(
+                              device=D.device).manual_seed(3))
+    gp, gl = torch.ones_like(M), torch.ones_like(M[:, 0])
+    got, want = rwkv6_scan_mod._carry(D, M), carry_loop(D, M)
+    err = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+    assert err <= RWKV_RTOL, err
+    del got, want
+    leaves = [t.detach().requires_grad_(True) for t in xs]
+    out = rwkv6_wkv(*leaves, chunk=C)[0]
+    dout = torch.ones_like(out)
+    t = {"carry_rel_err": err}
+    for name, carry in (("two_level", rwkv6_scan_mod._carry),
+                        ("loop", carry_loop)):
+        def fwd_bwd():
+            d, m = D.detach().requires_grad_(), M.detach().requires_grad_()
+            return torch.autograd.grad(carry(d, m), (d, m), (gp, gl))
+
+        def backward():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+        with mock.patch.object(rwkv6_scan_mod, "_carry", carry):
+            t[f"carry_{name}_ms"] = time_ms(fwd_bwd, 3, flush)
+            t[f"carry_{name}_host_ms"] = host_ms(fwd_bwd, 2)
+            t[f"backward_{name}_ms"] = time_ms(backward, 3, flush)
+            t[f"backward_{name}_host_ms"] = host_ms(backward, 2)
+    return t
+
+
+def rwkv_kernel_phase(dev) -> dict:
+    """K4 against its plain version: f32 on the reference test's cases
+    and the smoke heads at chunk 16, f32 at logw = -5 throughout (finite,
+    and the plain version's result), then at the training cell's shape
+    with bf16 r, k, v: output and last state, timed (K4, plain, the
+    chunk-parallel form, the state carry two ways). The gradients through
+    the Function are held to autograd of the plain version on every f32
+    case, at 64 chunks with the cell's heads, and at the cell."""
+    errs, rel, grads = {}, {}, {}
+
+    def check(tag, xs, chunk):
+        out, s_last = rwkv6_wkv_forward(*xs, chunk=chunk)
+        want, want_s = rwkv6_wkv_plain(*xs, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(s_last).all()
+        rel[tag] = max(rel_err(out, want), rel_err(s_last, want_s))
+        errs[tag] = max((out - want).abs().max().item(),
+                        (s_last - want_s).abs().max().item())
+        assert rel[tag] <= RWKV_RTOL, (tag, rel[tag])
+
+    def check_grads(tag, xs, chunk, dtype):
+        grads[tag] = rwkv_grads_check(xs, chunk)
+        assert max(grads[tag].values()) <= GRAD_RTOL[dtype], (tag, grads)
+
+    for i, shape in enumerate(RWKV_CASES):
+        xs = rwkv_inputs(*shape, torch.float32, dev, seed=i)
+        check(f"f32_case{i}", xs, 16)
+        check_grads(f"f32_case{i}", xs, 16, torch.float32)
+    check_grads("f32_64_chunks", rwkv_inputs(1, 1024, 4, 160, torch.float32,
+                                             dev, seed=8), 16, torch.float32)
+    check("f32_logw_-5", rwkv_inputs(2, 256, 4, 64, torch.float32, dev,
+                                     seed=9, logw=-5.0), 16)
+    B, T, H, N, C = (RWKV_SHAPE[x] for x in "BTHNC")
+    xs = rwkv_inputs(B, T, H, N, torch.bfloat16, dev, seed=1)
+    check("bf16_cell", xs, C)
+    check_grads("bf16_cell", xs, C, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bound_ms, bound_by, ops, nbytes = rwkv_bound(B, T, H, N, C, 2)
+    t = {"kernel_ms": time_ms(lambda: rwkv6_wkv_forward(*xs, chunk=C), 20,
+                              flush),
+         "plain_ms": time_ms(lambda: rwkv6_wkv_plain(*xs, chunk=C), 2,
+                             flush),
+         "chunked_ms": time_ms(lambda: rwkv6_wkv_chunked(*xs, chunk=C), 5,
+                               flush),
+         # the Function's backward (the chunk-parallel form recomputed
+         # under autograd, then its gradients; plain PyTorch, no kernel),
+         # with the state carry of rwkv6_scan.py and with a plain loop
+         **carry_timings(xs, C, flush),
+         "library_ms": None, "library": "none: no single PyTorch call "
+         "computes the WKV recurrence",
+         "bound_ms": bound_ms, "bound_by": bound_by, "bound_flop": ops,
+         "bound_bytes": nbytes}
+    emit("kernel", name="rwkv6_wkv", dtype="bfloat16 r, k, v; float32 "
+         "logw, u, out, state", shape=RWKV_SHAPE, max_abs_err=errs,
+         max_rel_err=rel, rtol=RWKV_RTOL, grad_rel_err=grads,
+         grad_rtol={"f32": GRAD_RTOL[torch.float32],
+                    "bf16": GRAD_RTOL[torch.bfloat16]}, **t)
+    return {**t, "max_abs_err": max(errs.values()),
+            "max_rel_err": max(rel.values())}
+
+
 # --------------------------------------------------------------- serve
 
 
@@ -938,10 +1134,10 @@ def smoke_train(cfg, params, dev, batches, oc):
 def train_parity_phase(dev) -> None:
     """The smoke configs in f32, 3 steps from the same weights and the
     loader's batches: the card (K3 for every attention, K5 for every R
-    layer) against the CPU (the reference's routes, plain versions);
-    losses within ``TRAIN_LOSS_RTOL`` relative."""
+    layer, K4 for every W layer) against the CPU (the reference's routes,
+    plain versions); losses within ``TRAIN_LOSS_RTOL`` relative."""
     oc = OptConfig(total_steps=3, warmup_steps=1)
-    for arch in ("qwen2_7b", "gemma2_27b", "recurrentgemma_9b"):
+    for arch in ("qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"):
         cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
         params = init_params(model_spec(cfg),
                              torch.Generator().manual_seed(0), "cpu",
@@ -952,7 +1148,10 @@ def train_parity_phase(dev) -> None:
         cpu = smoke_train(cfg, params, "cpu", batches, oc)
         card, launches = counted(
             lambda: smoke_train(cfg, params, dev, batches, oc))
-        assert launches["flash_attention"] > 0, launches
+        if set(cfg.layer_pattern) & {"G", "L"}:
+            assert launches["flash_attention"] > 0, launches
+        if "W" in cfg.layer_pattern:
+            assert launches["rwkv6_wkv"] > 0, launches
         if "R" in cfg.layer_pattern:
             assert launches["rglru_scan"] > 0, launches
             assert launches["rglru_scan_reverse"] > 0, launches
@@ -964,15 +1163,13 @@ def train_parity_phase(dev) -> None:
              kernel_launches=launches)
 
 
-def train_phase(dev) -> dict:
-    """The training path at full width: recurrentgemma-9b cut to 5 layers,
-    bf16, seeded random weights, 4 AdamW steps at batch 2 x 4096 through
-    ``build_train_step``. Returns the launches of K3 and K5 in the run."""
-    cfg = configs.get("recurrentgemma_9b").replace(n_layers=5)
+def train_steps(cfg, dev, expect, config):
+    """4 AdamW steps of ``cfg`` (bf16, seeded random weights) at batch
+    2 x 4096 from ``TrainLoader`` through ``build_train_step``, every
+    launch counted; ``expect`` holds each kernel's launches a step by the
+    layout. Returns (step_fn, state, a fifth batch, the run's launches)."""
     tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
     n_steps, B, S = 4, 2, 4096
-    expect = {"flash_attention": 2, "rglru_scan": 6,
-              "rglru_scan_reverse": 4}          # a step, by the layout
     t0 = time.time()
     state = make_train_state(cfg, tc, torch.Generator(
         device=dev).manual_seed(0), dev)
@@ -1008,17 +1205,62 @@ def train_phase(dev) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     for st in steps:
         assert math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
-    for name, n in expect.items():
-        assert counts[name] == n * n_steps, (counts, expect)
-    emit("train", config="recurrentgemma_9b full width (d_model 4096, 16 "
-         "heads, MQA, d_head 256, d_ff 12288, vocab 256000, window 2048, "
-         "lru width 4096), 5 layers (RRL + RR tail), bf16, random weights "
-         "(seed 0)", params=n_params, init_s=init_s, batch=B, seq_len=S,
-         steps=steps, kernel_launches=counts,
+    for name, n in counts.items():
+        assert n == expect.get(name, 0) * n_steps, (counts, expect)
+    emit("train", config=config, params=n_params, init_s=init_s, batch=B,
+         seq_len=S, steps=steps, kernel_launches=counts,
          expected_launches_per_step=expect, max_memory_allocated=peak)
+    return step_fn, state, batches[n_steps], counts
 
-    layer_check(cfg, state, batches[n_steps])
-    profile_train(cfg, step_fn, state, batches[n_steps])
+
+def train_phase(dev) -> dict:
+    """The training path at full width: recurrentgemma-9b cut to 5 layers,
+    bf16, seeded random weights, 4 AdamW steps at batch 2 x 4096 through
+    ``build_train_step``. Returns the launches of K3 and K5 in the run."""
+    cfg = configs.get("recurrentgemma_9b").replace(n_layers=5)
+    step_fn, state, batch, counts = train_steps(
+        cfg, dev, {"flash_attention": 2, "rglru_scan": 6,
+              "rglru_scan_reverse": 4},
+        "recurrentgemma_9b full width (d_model 4096, 16 heads, MQA, d_head "
+        "256, d_ff 12288, vocab 256000, window 2048, lru width 4096), 5 "
+        "layers (RRL + RR tail), bf16, random weights (seed 0)")
+    layer_check(cfg, state, batch)
+    profile_train(cfg, step_fn, state, batch, "5 layers",
+                  {"flash_attention": "flash_attention_kernel",
+                   "rglru_scan": "rglru_"})
+    return counts
+
+
+def rwkv_train_phase(dev) -> dict:
+    """The W-layer training path at full width and full depth: rwkv6-3b,
+    32 layers, bf16, seeded random weights, 4 AdamW steps at batch
+    2 x 4096. Every W layer's WKV is a K4 launch, twice a step (forward
+    and checkpoint recompute; the backward recomputes the plain
+    chunk-parallel form). Returns K4's launches in the run."""
+    cfg = configs.get("rwkv6_3b")
+    step_fn, state, batch, counts = train_steps(
+        cfg, dev, {"rwkv6_wkv": 2 * cfg.n_layers},
+        "rwkv6_3b full width and depth (32 W layers, d_model 2560, 16 "
+        "heads x 160, d_ff 8960, vocab 65536), bf16, random weights "
+        "(seed 0)")
+    rwkv_layer_check(cfg, state, batch)
+    profile_train(cfg, step_fn, state, batch, "32 layers",
+                  {"rwkv6_wkv": "rwkv6_wkv_kernel"})
+    # the whole step with the backward's state carry of rwkv6_scan.py and
+    # with a plain loop over the chunks, in the order A B B A
+    steps = []
+    for name, carry in (("two_level", rwkv6_scan_mod._carry),
+                        ("loop", carry_loop), ("loop", carry_loop),
+                        ("two_level", rwkv6_scan_mod._carry)):
+        with mock.patch.object(rwkv6_scan_mod, "_carry", carry):
+            t = time.time()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+        steps.append({"carry": name, "ms": (time.time() - t) * 1e3,
+                      "loss": m["loss"].item()})
+        assert math.isfinite(steps[-1]["loss"]), steps
+    emit("train_carry", what="rwkv6_3b steps with each state carry in "
+         "the WKV backward", steps=steps)
     return counts
 
 
@@ -1064,9 +1306,40 @@ def layer_check(cfg, state, batch) -> None:
          loss_abs_diff=abs(loss_kernel - loss_plain))
 
 
-def profile_train(cfg, step_fn, state, batch) -> None:
+def rwkv_layer_check(cfg, state, batch) -> None:
+    """One forward at the trained weights and a fresh batch: every W
+    layer's K4 output held to its plain version on the same inputs (the
+    kernel's output carried on), within ``LAYER_RTOL`` of the layer's
+    scale; then the whole loss by the kernel route and by the plain
+    route, printed."""
+    errs = []
+
+    def k4(r, k, v, logw, u, *, chunk):
+        got = rwkv6_wkv(r, k, v, logw, u, chunk=chunk)
+        errs.append(rel_err(got[0], rwkv6_wkv_plain(r, k, v, logw, u,
+                                                    chunk=chunk)[0]))
+        return got
+
+    with torch.no_grad():
+        with mock.patch.object(model_recurrent, "_rwkv6_wkv_kernel", k4):
+            loss_kernel = loss_fn(cfg, state["params"], batch).item()
+        with mock.patch.object(model_recurrent, "_rwkv6_wkv_kernel",
+                               rwkv6_wkv_plain):
+            loss_plain = loss_fn(cfg, state["params"], batch).item()
+    assert len(errs) == cfg.n_layers, errs
+    assert max(errs) <= LAYER_RTOL["rwkv6_wkv"], errs
+    emit("train_layers", what="rwkv6_3b 32 layers, bf16, trained weights, "
+         "fresh batch 2 x 4096: each layer's K4 output against its plain "
+         "version on the same inputs", rel_err=errs,
+         rtol=LAYER_RTOL["rwkv6_wkv"], loss_kernel_route=loss_kernel,
+         loss_plain_route=loss_plain,
+         loss_abs_diff=abs(loss_kernel - loss_plain))
+
+
+def profile_train(cfg, step_fn, state, batch, depth, kernels) -> None:
     """Where a train step's time goes: one step under torch.profiler,
-    CUDA activity only. Device busy share = summed kernel time / wall."""
+    CUDA activity only. Device busy share = summed kernel time / wall.
+    ``kernels`` maps each port kernel to a substring of its device name."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1083,15 +1356,15 @@ def profile_train(cfg, step_fn, state, batch) -> None:
 
     def total(pred):
         return sum(t for n, t in by_name.items() if pred(n.lower()))
-    k3_ms = total(lambda n: "flash_attention_kernel" in n)
-    k5_ms = total(lambda n: "rglru_" in n)
+    per_kernel = {}
+    for name, key in kernels.items():
+        ms = total(lambda n: key in n)
+        per_kernel.update({f"{name}_ms": ms, f"{name}_share": ms / busy_ms})
     gemm_ms = total(lambda n: any(g in n for g in GEMM_NAMES))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit("profile", config=f"{cfg.arch} 5 layers", run="one train step, "
+    emit("profile", config=f"{cfg.arch} {depth}", run="one train step, "
          "batch 2 x 4096", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1 - busy_ms / wall_ms,
-         flash_attention_ms=k3_ms, flash_attention_share=k3_ms / busy_ms,
-         rglru_scan_ms=k5_ms, rglru_scan_share=k5_ms / busy_ms,
+         device_idle_share=1 - busy_ms / wall_ms, **per_kernel,
          gemm_ms=gemm_ms, gemm_share=gemm_ms / busy_ms,
          top_kernels=[[n[:80], t] for n, t in top])
 
@@ -1126,6 +1399,7 @@ def main() -> int:
     k2 = decode_kernel_phase(dev)
     k3 = flash_kernel_phase(dev)
     k5 = rglru_kernel_phase(dev)
+    k4 = rwkv_kernel_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     parity_phase(dev)
@@ -1137,6 +1411,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # gemma2's 54.5 GB go before training
     train_launches = train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()       # recurrentgemma's state goes before rwkv6's
+    k4_launches = rwkv_train_phase(dev)
     k1_entry = kernel_entry("paged_attention",
                             "src/repro/kernels/paged_attention.py:41",
                             k1_launches, k1)
@@ -1166,8 +1443,17 @@ def main() -> int:
                     launches_reverse=train_launches["rglru_scan_reverse"],
                     reverse_ms=k5["reverse_kernel_ms"],
                     reverse_plain_ms=k5["reverse_plain_ms"])
-    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k5_entry]}),
-          flush=True)
+    k4_entry = kernel_entry("rwkv6_scan",
+                            "src/repro/kernels/rwkv6_scan.py:27",
+                            k4_launches["rwkv6_wkv"], k4)
+    k4_entry.update(tpu_kernel="src/repro/kernels/rwkv6_scan.py:"
+                    "_rwkv_kernel", shape="rwkv6-3b W layer: B=2 T=4096 "
+                    "H=16 N=160 chunk 16, bf16 r/k/v, fp32 logw/u/out",
+                    max_rel_err=k4["max_rel_err"],
+                    chunked_ms=k4["chunked_ms"],
+                    backward_plain_ms=k4["backward_two_level_ms"])
+    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k4_entry,
+                                  k5_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ ARCH_IDS = [
     "gemma2_27b",
     "qwen2_7b",
     "recurrentgemma_9b",
+    "rwkv6_3b",
 ]
 
 

@@ -12,16 +12,24 @@ raises); on CPU tensors it runs the plain version:
   plain PyTorch (``flash_attention_bwd_plain``);
 * ``rglru_scan`` / ``rglru_scan_plain`` — the RG-LRU recurrence of the
   training forward, forward and reverse (backward) mode
-  (``rglru_scan_bwd_plain``)."""
+  (``rglru_scan_bwd_plain``);
+* ``rwkv6_wkv`` / ``rwkv6_wkv_plain`` — RWKV6's chunked WKV of the training
+  forward (``rwkv6_wkv_forward``: the same route without autograd); its
+  backward is autograd's of ``rwkv6_wkv_chunked``, the reference model's
+  chunk-parallel form in plain PyTorch."""
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import (flash_attention, flash_attention_bwd_plain,
                               flash_attention_forward, flash_attention_plain)
 from .paged_attention import paged_attention_plain, paged_decode_attention
 from .rglru_scan import (rglru_scan, rglru_scan_bwd_plain, rglru_scan_plain,
                          rglru_scan_reverse)
+from .rwkv6_scan import (rwkv6_wkv, rwkv6_wkv_chunked, rwkv6_wkv_forward,
+                         rwkv6_wkv_plain)
 
 __all__ = ["paged_decode_attention", "paged_attention_plain",
            "decode_attention", "decode_attention_plain",
            "flash_attention", "flash_attention_forward",
-           "flash_attention_plain", "flash_attention_bwd_plain", "rglru_scan", "rglru_scan_plain",
-           "rglru_scan_bwd_plain", "rglru_scan_reverse"]
+           "flash_attention_plain", "flash_attention_bwd_plain",
+           "rglru_scan", "rglru_scan_plain", "rglru_scan_bwd_plain",
+           "rglru_scan_reverse", "rwkv6_wkv", "rwkv6_wkv_chunked",
+           "rwkv6_wkv_forward", "rwkv6_wkv_plain"]

@@ -1,6 +1,6 @@
 """repro_torch.models — the port's model code: config, parameter specs and
 the weight bridge (``common``), layers, chunked attention, the RG-LRU
-block, the LM training forward and loss, the LM decode step on the paged
+block and the RWKV6 mixers, the LM training forward and loss, the LM decode step on the paged
 and gather planes, and the model API (``api``)."""
 from .api import forward, init_decode_cache, loss_fn
 from .common import (ModelConfig, ParamSpec, init_params, params_from_numpy,

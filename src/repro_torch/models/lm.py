@@ -8,11 +8,11 @@ explicit tail, exactly as in the reference's parameter tree. Where the
 reference scans over the repeat axis, the port loops over it.
 
 Layer kinds ported so far: G (global attention + dense MLP), L (local,
-windowed attention + dense MLP) and R (RG-LRU recurrent block + dense
-MLP). The training/prefill forward ``lm_forward`` and ``lm_loss`` run all
-three; the decode step runs G and L on both data planes: paged (G only)
-and gather. The M and W kinds, and R in decode, raise
-``NotImplementedError``.
+windowed attention + dense MLP), R (RG-LRU recurrent block + dense MLP)
+and W (RWKV6 time-mix + channel-mix). The training/prefill forward
+``lm_forward`` and ``lm_loss`` run all four; the decode step runs G and L
+on both data planes: paged (G only) and gather. The M kind, and R and W
+in decode, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .common import ModelConfig, ParamSpec, tree_map
-from .recurrent import rglru_block, rglru_block_spec
+from .recurrent import (rglru_block, rglru_block_spec, rwkv_channel_mix,
+                        rwkv_channel_mix_spec, rwkv_time_mix,
+                        rwkv_time_mix_spec)
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -37,6 +39,13 @@ def _sublayer_spec(cfg: ModelConfig, kind: str) -> Dict:
             "rec": rglru_block_spec(cfg),
             "ln2": L.norm_spec(cfg),
             "mlp": L.mlp_spec(cfg),
+        }
+    if kind == "W":
+        return {
+            "ln1": L.norm_spec(cfg),
+            "tm": rwkv_time_mix_spec(cfg),
+            "ln2": L.norm_spec(cfg),
+            "cm": rwkv_channel_mix_spec(cfg),
         }
     if kind not in ("G", "L"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
@@ -95,14 +104,20 @@ def _unit_keys(pat: str) -> List[str]:
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
                     paged=None):
-    """One G, L or R sublayer. Without ``cache`` the training/prefill form
-    (L and R layers see ``cfg.window``); with it a G or L decode, which
-    writes the layer's cache (or pool pages) in place. Returns h."""
+    """One G, L, R or W sublayer. Without ``cache`` the training/prefill
+    form (L and R layers see ``cfg.window``); with it a G or L decode,
+    which writes the layer's cache (or pool pages) in place. Returns h."""
+    if kind in ("R", "W") and cache is not None:
+        raise NotImplementedError(
+            f"{kind} layers have no ported decode: only the training/"
+            "prefill forward runs them")
+    if kind == "W":
+        tm_out, _ = rwkv_time_mix(cfg, prm["tm"], L.norm(cfg, prm["ln1"], h))
+        h = h + tm_out
+        cm_out, _ = rwkv_channel_mix(cfg, prm["cm"],
+                                     L.norm(cfg, prm["ln2"], h))
+        return h + cm_out
     if kind == "R":
-        if cache is not None:
-            raise NotImplementedError(
-                "R layers have no ported decode: only the training/prefill "
-                "forward runs them")
         x = L.norm(cfg, prm["ln1"], h)
         rec_out, _ = rglru_block(cfg, prm["rec"], x)
         h = h + rec_out
@@ -136,10 +151,10 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
     inputs are kept and its inside is recomputed in the backward. The tail
     layers are not checkpointed, as in the reference."""
     pat, n_rep, tail = unit_pattern(cfg)
-    unported = set(pat + tail) - {"G", "L", "R"}
+    unported = set(pat + tail) - {"G", "L", "R", "W"}
     if unported:
         raise NotImplementedError(
-            f"the port's forward covers G, L and R layers; layer kinds "
+            f"the port's forward covers G, L, R and W layers; layer kinds "
             f"{sorted(unported)} are not ported")
     h = L.embed(cfg, params["embed"], tokens)
     S = h.shape[1]

@@ -1,19 +1,22 @@
 """Recurrent sequence mixers; mirrors ``src/repro/models/recurrent.py``.
 
-Ported so far: the RG-LRU (Griffin/RecurrentGemma) block's training and
-prefill forward. The gate and projection products are plain PyTorch; the
-recurrence itself goes through ``kernels.rglru_scan`` (the CUDA kernel on
-CUDA tensors, its plain sequential version on CPU tensors). The one-step
-decode (``rglru_step``) and RWKV6 raise ``NotImplementedError``.
+Ported so far: the training and prefill forward of the RG-LRU
+(Griffin/RecurrentGemma) block and of RWKV6's time-mix and channel-mix.
+The gate and projection products are plain PyTorch; the recurrences go
+through ``kernels.rglru_scan`` and ``kernels.rwkv6_wkv`` (each the CUDA
+kernel on CUDA tensors, its plain version on CPU tensors). The decode
+forms (``rglru_step``, a ``state=`` carried in) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import rglru_scan as _rglru_scan_kernel
+from ..kernels import rwkv6_wkv as _rwkv6_wkv_kernel
 from .common import ModelConfig, p
 
 # ---------------------------------------------------------------------------
@@ -106,14 +109,121 @@ def rglru_block(cfg: ModelConfig, params, x, *, state: Optional[Dict] = None):
 
 
 # ---------------------------------------------------------------------------
-# RWKV6 (Finch): not ported yet
+# RWKV6  (Finch, arXiv:2404.05892)
 # ---------------------------------------------------------------------------
 
+_RWKV_CHUNK = 16
+_LOGW_MIN, _LOGW_MAX = -5.0, -1e-6
+_LORA_DIM = 64
 
-def _rwkv_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "RWKV6 (W layers) is not ported yet: it comes with its WKV kernel")
+
+def rwkv_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_heads, head_dim), sized to the reference's TP degree (16); the
+    config's ``n_heads``/``d_head`` are not used."""
+    H = 16 if cfg.d_model % 16 == 0 else 8
+    return H, cfg.d_model // H
 
 
-rwkv_time_mix_spec = rwkv_time_mix = _rwkv_not_ported
-rwkv_channel_mix_spec = rwkv_channel_mix = _rwkv_not_ported
+def rwkv_time_mix_spec(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    H, N = rwkv_heads(cfg)
+    return {
+        "mu_r": p((d,), ("embed",), init="zeros"),
+        "mu_k": p((d,), ("embed",), init="zeros"),
+        "mu_v": p((d,), ("embed",), init="zeros"),
+        "mu_g": p((d,), ("embed",), init="zeros"),
+        "mu_w": p((d,), ("embed",), init="zeros"),
+        "wr": p((d, H, N), ("embed", "heads", "head_dim"), init="scaled"),
+        "wk": p((d, H, N), ("embed", "heads", "head_dim"), init="scaled"),
+        "wv": p((d, H, N), ("embed", "heads", "head_dim"), init="scaled"),
+        "wg": p((d, H, N), ("embed", "heads", "head_dim"), init="scaled"),
+        "w0": p((H, N), ("heads", "head_dim"), init="zeros"),
+        "lora_wA": p((d, _LORA_DIM), ("embed", None), init="scaled"),
+        "lora_wB": p((_LORA_DIM, H, N), (None, "heads", "head_dim"),
+                     init="scaled"),
+        "u": p((H, N), ("heads", "head_dim"), init="normal", scale=0.5),
+        "ln_out": p((H, N), ("heads", "head_dim"), init="zeros"),
+        "wo": p((H, N, d), ("heads", "head_dim", "embed"), init="scaled"),
+    }
+
+
+def _shift(x):
+    """Token shift: x_{t-1}, zero before the first token."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _rwkv_proj(cfg, params, x, xprev):
+    def mix(mu):
+        return x + (xprev - x) * mu.to(x.dtype)
+
+    r = torch.einsum("bsd,dhn->bshn", mix(params["mu_r"]), params["wr"])
+    k = torch.einsum("bsd,dhn->bshn", mix(params["mu_k"]), params["wk"])
+    v = torch.einsum("bsd,dhn->bshn", mix(params["mu_v"]), params["wv"])
+    g = torch.einsum("bsd,dhn->bshn", mix(params["mu_g"]), params["wg"])
+    xw = mix(params["mu_w"]).float()
+    lora = torch.einsum("bsl,lhn->bshn",
+                        torch.tanh(xw @ params["lora_wA"].float()),
+                        params["lora_wB"].float())
+    logw = -torch.exp(params["w0"].float() + lora)
+    logw = torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)
+    return r, k, v, g, logw
+
+
+def _rwkv_out(cfg, params, wkv, g):
+    """Per-head RMS-norm, gate, out-projection. wkv: (B,S,H,N)."""
+    xf = wkv.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + 1e-6)
+    xf = xf * (1.0 + params["ln_out"].float())
+    out = xf.to(wkv.dtype) * F.silu(g)
+    return torch.einsum("bshn,hnd->bsd", out, params["wo"])
+
+
+def rwkv_time_mix(cfg: ModelConfig, params, x, *,
+                  state: Optional[Dict] = None):
+    """x: (B,S,d). Only the training/prefill form (``state=None``) is
+    ported: the WKV goes through ``kernels.rwkv6_wkv`` in chunks of
+    ``_RWKV_CHUNK`` (the CUDA kernel on CUDA tensors, its plain version on
+    CPU tensors). Returns (out (B,S,d), {"shift": (B,d), "S": (B,H,N,N)
+    fp32}), the state a decode would continue from."""
+    if state is not None:
+        raise NotImplementedError(
+            "RWKV6 time-mix decode (W-layer serving) is not ported yet")
+    r, k, v, g, logw = _rwkv_proj(cfg, params, x, _shift(x))
+    u = params["u"].float()
+    wkv, S_last = _rwkv6_wkv_kernel(r.contiguous(), k.contiguous(),
+                                    v.contiguous(), logw.contiguous(),
+                                    u.contiguous(), chunk=_RWKV_CHUNK)
+    y = _rwkv_out(cfg, params, wkv.to(x.dtype), g)
+    return y, {"shift": x[:, -1, :], "S": S_last}
+
+
+def rwkv_channel_mix_spec(cfg: ModelConfig) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": p((d,), ("embed",), init="zeros"),
+        "mu_r": p((d,), ("embed",), init="zeros"),
+        "wk": p((d, f), ("embed", "ff"), init="scaled"),
+        "wv": p((f, d), ("ff", "embed"), init="scaled"),
+        "wr": p((d, d), ("embed", None), init="scaled"),
+    }
+
+
+def rwkv_channel_mix(cfg: ModelConfig, params, x, *,
+                     state: Optional[torch.Tensor] = None):
+    """RWKV6 FFN with token shift, training/prefill form. Returns (out
+    (B,S,d), the last token (B,d))."""
+    if state is not None:
+        raise NotImplementedError(
+            "RWKV6 channel-mix decode (W-layer serving) is not ported yet")
+    xprev = _shift(x)
+
+    def mix(mu):
+        return x + (xprev - x) * mu.to(x.dtype)
+
+    kx = torch.einsum("bsd,df->bsf", mix(params["mu_k"]), params["wk"])
+    kx = torch.square(F.relu(kx))
+    vx = torch.einsum("bsf,fd->bsd", kx, params["wv"])
+    rx = torch.sigmoid(torch.einsum("bsd,de->bse", mix(params["mu_r"]),
+                                    params["wr"]))
+    return rx * vx, x[:, -1, :]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (paged attention, flash-decoding, flash
-attention, the RG-LRU scan) against their plain versions, on the card.
+attention, the RG-LRU scan, the RWKV6 WKV) against their plain versions,
+on the card.
 These tests need a GPU and nvcc; elsewhere they skip. Run them on the
 card with
 
@@ -19,7 +20,8 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  paged_attention_plain,
                                  paged_decode_attention, rglru_scan,
                                  rglru_scan_bwd_plain, rglru_scan_plain,
-                                 rglru_scan_reverse)
+                                 rglru_scan_reverse, rwkv6_wkv,
+                                 rwkv6_wkv_plain)
 from repro_torch.models import (init_params, loss_fn,  # noqa: E402
                                 model_spec, tree_paths)
 from repro_torch.models.common import unflatten  # noqa: E402
@@ -316,11 +318,123 @@ def test_rglru_wrapper_raises_on_what_kernel_does_not_take(dev):
         rglru_scan(a, b.cpu())
 
 
+# (B, T, H, N, chunk): the reference test's cases (tests/test_kernels.py:
+# 111-112) at the kernel's chunk of at most 16, the smoke model's heads
+# (N=4), ragged T, short chunks, N not a multiple of 4 or of the 32-column
+# tile, the training cell's heads (N=160) and the largest N (256)
+RWKV_CASES = [(1, 64, 2, 32, 16), (2, 96, 4, 64, 16), (1, 50, 2, 16, 16),
+              (1, 128, 2, 128, 16), (2, 40, 16, 4, 16), (1, 37, 3, 20, 5),
+              (2, 9, 2, 33, 16), (1, 100, 2, 160, 16), (1, 48, 1, 256, 16),
+              (1, 1, 2, 8, 16)]
+
+
+def _rwkv_inputs(B, T, H, N, dtype, dev, seed, logw=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((B, T, H, N), generator=g, device=dev)
+               for _ in range(3))
+    lw = torch.clamp(-torch.exp(0.5 * torch.randn(
+        (B, T, H, N), generator=g, device=dev)), -5.0, -1e-6)
+    if logw is not None:
+        lw.fill_(logw)
+    u = 0.5 * torch.randn((H, N), generator=g, device=dev)
+    return [t.to(dtype) for t in (r, k, v)] + [lw, u]
+
+
+@pytest.mark.parametrize("case", RWKV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_kernel_matches_plain(dev, case, dtype):
+    """Output and last state within 1e-4 of their largest magnitude (the
+    reference test's bar): kernel and plain version read the same inputs
+    and sum in fp32, the kernel with factored decays, the plain version
+    with differences of cumulative decays."""
+    *shape, C = case
+    xs = _rwkv_inputs(*shape, getattr(torch, dtype), dev, seed=sum(case))
+    before = rwkv6_wkv.launches
+    out, s_last = rwkv6_wkv(*xs, chunk=C)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == before + 1
+    want, want_s = rwkv6_wkv_plain(*xs, chunk=C)
+    for got, w in ((out, want), (s_last, want_s)):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        err = (got - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (case, err)
+
+
+def test_rwkv6_kernel_strong_decay(dev):
+    """logw = -5 throughout, the model's clip floor, where the factored
+    decay's exponent reaches 75: finite, and the plain version's result."""
+    xs = _rwkv_inputs(2, 200, 4, 64, torch.float32, dev, seed=3, logw=-5.0)
+    out, s_last = rwkv6_wkv(*xs, chunk=16)
+    want, want_s = rwkv6_wkv_plain(*xs, chunk=16)
+    assert torch.isfinite(out).all() and torch.isfinite(s_last).all()
+    assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert (s_last - want_s).abs().max().item() <= \
+        1e-4 * want_s.abs().max().item()
+
+
+def _rwkv_grads_against_plain(shape, dtype, dev, seed):
+    """The Function's gradients (kernel forward, the chunk-parallel form
+    recomputed for the backward) and autograd's of the plain version (a
+    loop over chunks, decays from differences of log decays) on the same
+    inputs and dout."""
+    xs = _rwkv_inputs(*shape, dtype, dev, seed=seed)
+    dout = torch.randn(shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(7))
+    grads = []
+    for fn in (rwkv6_wkv, rwkv6_wkv_plain):
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        grads.append(torch.autograd.grad(fn(*leaves, chunk=16)[0], leaves,
+                                         dout))
+    return zip(*grads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_gradients_through_wrapper(dev, dtype):
+    """The Function's gradients against autograd of the plain version,
+    within 1e-4 of each gradient's largest magnitude (fp32), one bf16 ulp
+    (bf16: the gradients of r, k, v round to it)."""
+    tol = 1e-4 if dtype == "float32" else 2 ** -7
+    for a, b in _rwkv_grads_against_plain((2, 70, 4, 32),
+                                          getattr(torch, dtype), dev, 5):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item()
+
+
+def test_rwkv6_gradients_many_chunks(dev):
+    """As above at 64 chunks and the full model's head width: the
+    backward's two-level state carry at 8 groups of 8 chunks."""
+    for a, b in _rwkv_grads_against_plain((1, 1024, 4, 160), torch.float32,
+                                          dev, 8):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item()
+
+
+def test_rwkv6_wrapper_raises_on_what_kernel_does_not_take(dev):
+    r, k, v, lw, u = _rwkv_inputs(1, 32, 2, 16, torch.float32, dev, seed=0)
+    with pytest.raises(ValueError, match="chunk"):
+        rwkv6_wkv(r, k, v, lw, u, chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6_wkv(r, k, v, lw.to(torch.bfloat16), u)
+    with pytest.raises(TypeError, match="dtype"):
+        rwkv6_wkv(r, k.to(torch.bfloat16), v, lw, u)
+    with pytest.raises(ValueError, match="shape"):
+        rwkv6_wkv(r, k, v[:, :8], lw, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_wkv(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, lw,
+                  u)
+    with pytest.raises(ValueError, match="one device"):
+        rwkv6_wkv(r, k, v, lw, u.cpu())
+    big = _rwkv_inputs(1, 4, 1, 264, torch.float32, dev, seed=1)
+    with pytest.raises(ValueError, match="N <= 256"):
+        rwkv6_wkv(*big)
+
+
 @pytest.mark.parametrize("arch", ["qwen2_7b", "gemma2_27b",
-                                  "recurrentgemma_9b"])
+                                  "recurrentgemma_9b", "rwkv6_3b"])
 def test_loss_and_grads_on_card_match_cpu(dev, arch):
-    """The smoke configs' loss and gradients in f32: the card (K3, K5)
-    against the CPU (the reference's routes, plain versions)."""
+    """The smoke configs' loss and gradients in f32: the card (K3, K5,
+    K4) against the CPU (the reference's routes, plain versions)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
     params = init_params(model_spec(cfg), torch.Generator().manual_seed(0),

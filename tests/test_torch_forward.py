@@ -1,6 +1,6 @@
 """The port's training forward (``lm_forward``) and loss against the
-reference's on the qwen2-7b, gemma2-27b and recurrentgemma-9b smoke
-configs in f32, with the reference's weights carried over by the bridge
+reference's on the qwen2-7b, gemma2-27b, recurrentgemma-9b and rwkv6-3b
+smoke configs in f32, with the reference's weights carried over by the bridge
 and the same seeded tokens.
 
 Logits within 2e-4 with the same argmax everywhere, the loss within 1e-5
@@ -8,7 +8,8 @@ relative: f32 on both sides, summed in different orders. The CPU route of
 ``attn_impl="auto"`` is the reference's (``_sdpa`` at these lengths);
 ``attn_impl="chunked"`` with small chunks holds the port's
 ``chunked_attention`` to the reference's. S=8 fits inside every window,
-S=32 is wider than gemma2's (8) and recurrentgemma's (16)."""
+S=32 is wider than gemma2's (8) and recurrentgemma's (16); S=8 is a
+ragged half of rwkv6's WKV chunk (16), S=32 two whole chunks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +26,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import (forward, lm_forward, loss_fn,  # noqa: E402
                                 params_from_numpy)
 
-ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b"]
+ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"]
 _MODELS = {}
 
 
@@ -95,5 +96,5 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         forward(cfg.replace(family="encdec"), {}, {"tokens": None})
     with pytest.raises(NotImplementedError):
-        lm_forward(cfg.replace(layer_pattern="W"), {},
+        lm_forward(cfg.replace(layer_pattern="M"), {},
                    torch.zeros((1, 4), dtype=torch.int32))

@@ -84,7 +84,7 @@ def test_entry_points_default_to_the_gpu():
 def test_configs_equal_reference(smoke):
     """Every architecture the port lists, field for field."""
     assert configs.ARCH_IDS == ["gemma2_27b", "qwen2_7b",
-                                "recurrentgemma_9b"]
+                                "recurrentgemma_9b", "rwkv6_3b"]
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -96,6 +96,7 @@ def test_configs_equal_reference(smoke):
     assert configs.canonical("qwen2.7b") == "qwen2_7b"
     assert configs.canonical("gemma2-27b") == "gemma2_27b"
     assert configs.canonical("recurrentgemma-9b") == "recurrentgemma_9b"
+    assert configs.canonical("rwkv6-3b") == "rwkv6_3b"
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -108,7 +109,7 @@ def test_param_spec_tree_equals_reference(smoke):
     """Same names, shapes, axes and init rules as the reference's tree,
     the stacked ``stack/0_G`` (and gemma2's ``stack/0_L``, ``stack/1_G``,
     recurrentgemma's ``stack/0_R``, ``stack/1_R``, ``stack/2_L`` and its
-    ``tail_*_R``) layer axes included."""
+    ``tail_*_R``, rwkv6's ``stack/0_W``) layer axes included."""
     for arch in configs.ARCH_IDS:
         ref = dict(tree_paths(jax_model_spec(jax_configs.get(arch,
                                                              smoke=smoke))))
@@ -129,3 +130,6 @@ def test_param_spec_tree_equals_reference(smoke):
         assert rg[("stack", "1_R", "rec", "gate_a")].shape == \
             (12, 16, 256, 256)
         assert rg[("tail_1_R", "rec", "w_x")].shape == (4096, 4096)
+        rw = shape["rwkv6_3b"]
+        assert rw[("stack", "0_W", "tm", "wr")].shape == (32, 2560, 16, 160)
+        assert rw[("stack", "0_W", "cm", "wk")].shape == (32, 2560, 8960)

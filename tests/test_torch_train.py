@@ -5,7 +5,7 @@ the CPU.
 * the reference's own optimizer tests, ported (tests/test_train.py:18,
   :37, :48): one AdamW step against numpy, the schedule, and gradient
   accumulation equal to one big batch;
-* gradients of ``loss_fn`` against ``jax.value_and_grad`` on the three
+* gradients of ``loss_fn`` against ``jax.value_and_grad`` on the four
   smoke configs in f32: each leaf within 1e-4 of that leaf's largest
   magnitude (f32 on both sides, summed in different orders);
 * three ``build_train_step`` steps in both packages from the same weights
@@ -44,7 +44,7 @@ from repro_torch.train import (OptConfig, TrainConfig,  # noqa: E402
                                clip_by_global_norm, make_train_state,
                                schedule_lr)
 
-ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b"]
+ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"]
 
 
 def _np_params(arch, dtype=jnp.float32, seed=0):
@@ -263,17 +263,17 @@ LINE = re.compile(r"^step +(\d+)  loss (\d+\.\d{4})  gnorm (\d+\.\d{3})  "
                   r"lr (\d\.\d\de[-+]\d\d)  \(\d+\.\ds\)$")
 
 
-def test_launcher_lines_match_reference(monkeypatch, capsys):
-    """``--smoke --device cpu --steps 3`` on recurrentgemma: the
-    reference launcher's line format, and on the reference's own weights
-    (handed to the port's launcher in place of its seeded draw) the same
-    step-0 loss within 1e-2."""
-    argv = ["--arch", "recurrentgemma_9b", "--smoke", "--steps", "3",
+def _check_launcher_lines(arch, monkeypatch, capsys):
+    """``--smoke --device cpu --steps 3`` on ``arch``: the reference
+    launcher's line format, and on the reference's own weights (handed to
+    the port's launcher in place of its seeded draw) the same step-0 loss
+    within 1e-2."""
+    argv = ["--arch", arch, "--smoke", "--steps", "3",
             "--global-batch", "2", "--seq-len", "16"]
     assert jax_launch.train_main(argv) == 0
     ref = capsys.readouterr().out.splitlines()
 
-    _, np_params = _np_params("recurrentgemma_9b", dtype=jnp.bfloat16)
+    _, np_params = _np_params(arch, dtype=jnp.bfloat16)
 
     def reference_weights(cfg, tc, generator, device):
         params = params_from_numpy(np_params, device=device)
@@ -290,3 +290,11 @@ def test_launcher_lines_match_reference(monkeypatch, capsys):
         assert g.group(4) == r.group(4)               # lr
     assert float(parsed[1][0].group(2)) == pytest.approx(
         float(parsed[0][0].group(2)), abs=1e-2)
+
+
+def test_launcher_lines_match_reference(monkeypatch, capsys):
+    _check_launcher_lines("recurrentgemma_9b", monkeypatch, capsys)
+
+
+def test_launcher_lines_match_reference_rwkv6(monkeypatch, capsys):
+    _check_launcher_lines("rwkv6_3b", monkeypatch, capsys)
