@@ -13,11 +13,15 @@ exits non-zero:
              card (f32 on the reference test's cases, bf16 at the main
              paths' shapes) and time both, the library yardstick and the
              least time the card could take. K1 is the paged-attention
-             kernel, K2 the flash-decoding kernel, K3 the flash-attention
-             kernel of the training forward (forward and, through its
-             autograd Function, backward; recurrentgemma's L layer and
-             gemma2's G layer at S=4096), K5 the RG-LRU scan (forward and
-             reverse mode at B=2, T=4096, W=4096), K4 the RWKV6 WKV
+             kernel (its designs, tensor-core tiles in bf16 and SIMT in
+             f32, each split over the block table, timed beside its
+             earlier 16-row SIMT design), K2 the flash-decoding kernel, K3
+             the flash-attention kernel of the training forward (forward
+             and, through its autograd Function, backward, in f32 and
+             bf16; recurrentgemma's L layer and gemma2's G layer at
+             S=4096, timed beside its earlier SIMT design), K5 the RG-LRU
+             scan (forward and reverse mode at B=2, T=4096, W=4096), K4
+             the RWKV6 WKV
              (f32 on the reference test's cases and at logw = -5, then
              bf16 r, k, v at rwkv6-3b's training shape B=2, T=4096,
              H=16, N=160; the gradients through its Function against
@@ -29,10 +33,13 @@ exits non-zero:
 5. serve   — the paged path: full-width qwen2-7b (28 layers, seeded
              random weights, bf16) served through ``ServeEngine(paged=
              True)`` under a LERC prefix cache with byte pressure; every
-             attention launch is counted. Then one decode step through the
-             plain attention and one through K1 on the same inputs, and a
-             short run under torch.profiler: device busy and idle share,
-             K1's and the GEMMs' device time.
+             attention launch is counted. Then one S=64 decode step
+             through the plain attention and one through K1 on the same
+             inputs (each layer's K1 output held to its plain version,
+             the logits at 4 layers within ``LOGITS_RTOL``, beside the
+             plain version summed in another order at 2 to 28 layers),
+             and a short run under torch.profiler: device busy and idle
+             share, K1's and the GEMMs' device time.
 6. serve   — the gather path: full-width, full-depth gemma2-27b (46 layers
              alternating rolling-window and global attention, softcaps,
              bf16, seeded random weights) through ``ServeEngine(paged=
@@ -81,6 +88,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import LoaderConfig, TrainLoader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_simt, flash_design)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention_tile16, paged_design)
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  decode_attention_plain, flash_attention,
@@ -117,6 +128,28 @@ PAGED_CASES = [
     (3, 4, 4, 1, 64, 8, 6, None),
     (1, 8, 8, 2, 32, 4, 16, 50.0),
     (2, 3, 2, 2, 128, 16, 4, None),
+]
+# K1's designs (B, S, H, KV, D, bt, NW, softcap), in f32 and bf16 on
+# ragged positions (a row ending at the table's last key, one starting at
+# 0, an idle slot and a row that sees no key): a long table (NW*bt = 4096,
+# split over many blocks), qwen2's G=7 at D=8 and D=128, D=256 both ways,
+# G=1, softcaps both ways, a bf16 chunk whose S*G = 140 is no multiple of
+# the 64-row tile, S*G = 16 and 17 on either side of the switch from
+# 16-row to 64-row tensor-core tiles, and D=64 over 4096 keys, whose
+# plans hold more splits (32, 64) than the merge pass has lanes on D
+PAGED_DESIGN_CASES = [
+    (8, 1, 28, 4, 128, 16, 256, None),
+    (3, 1, 7, 1, 8, 8, 12, None),
+    (4, 2, 28, 4, 128, 16, 32, None),
+    (2, 1, 16, 2, 256, 16, 20, None),
+    (2, 9, 4, 2, 256, 16, 5, None),
+    (4, 1, 4, 4, 64, 8, 16, None),
+    (2, 1, 28, 4, 128, 16, 40, 30.0),
+    (2, 8, 8, 2, 64, 16, 16, 50.0),
+    (4, 20, 28, 4, 128, 16, 24, None),
+    (3, 16, 4, 4, 64, 16, 8, None),
+    (3, 17, 4, 4, 64, 16, 8, None),
+    (2, 1, 8, 1, 64, 16, 256, None),
 ]
 DECODE_CASES = [
     # (B, S, H, KV, D, window, softcap), the reference test's cases (valid
@@ -198,9 +231,12 @@ def card_line() -> str:
 # --------------------------------------------------------------- kernel
 
 
-def paged_inputs(B, S, H, KV, D, bt, NW, dtype, dev, seed, inactive=False):
+def paged_inputs(B, S, H, KV, D, bt, NW, dtype, dev, seed, inactive=False,
+                 edges=False):
     """Seeded pool pages, disjoint shuffled tables, ragged positions; with
-    ``inactive`` the last row is an idle slot (all-zero table, lens 0)."""
+    ``inactive`` the last row is an idle slot (all-zero table, lens 0);
+    with ``edges`` row 0 ends at the table's last key, row 1 starts at 0
+    and, with B >= 4, row 2 sees no key (qpos -1)."""
     rng = np.random.default_rng(seed)
     NB = B * NW + 3
     q = torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
@@ -214,6 +250,11 @@ def paged_inputs(B, S, H, KV, D, bt, NW, dtype, dev, seed, inactive=False):
     if inactive:
         tables[-1] = 0
         qpos[-1] = np.arange(S)
+    if edges:
+        qpos[0] = NW * bt - S + np.arange(S)
+        qpos[1] = np.arange(S)
+        if B >= 4:
+            qpos[2] = -1
     t = [x.to(dev, dtype) for x in (q, kp, vp)]
     return t + [torch.from_numpy(a).to(dev) for a in (tables, qpos)]
 
@@ -293,7 +334,9 @@ def sdpa_call(q, kp, vp, tables, qpos):
 
 
 def kernel_phase(dev) -> dict:
-    """K1 against its plain version; times at the paged path's shapes."""
+    """K1 against its plain version: f32 on the reference test's cases,
+    every design in f32 and bf16 on ``PAGED_DESIGN_CASES``; then times at
+    the paged path's shapes, beside its earlier 16-row SIMT design's."""
     errs = {}
     for i, case in enumerate(PAGED_CASES):
         *shape, softcap = case
@@ -304,6 +347,25 @@ def kernel_phase(dev) -> dict:
         err = (got - want).abs().max().item()
         assert err <= F32_ATOL, (case, err)
         errs[f"f32_case{i}"] = err
+    designs = {}
+    for i, case in enumerate(PAGED_DESIGN_CASES):
+        *shape, softcap = case
+        B, S, H, KV = shape[:4]
+        for dtype, atol in ((torch.float32, F32_ATOL),
+                            (torch.bfloat16, BF16_ATOL)):
+            args = paged_inputs(*shape, dtype, dev, seed=100 + i,
+                                inactive=True, edges=True)
+            got = paged_decode_attention(*args, softcap=softcap)
+            want = paged_attention_plain(*args, softcap=softcap)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= atol, (case, dtype, err)
+            if B >= 4:
+                assert not got[2].any(), case
+            tag = f"{str(dtype).split('.')[-1]}_design_case{i}"
+            errs[tag] = err
+            designs[tag] = paged_design(S, H // KV, dtype)
+    assert set(designs.values()) == {"simt", "mma16", "mma64"}, designs
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for S in (1, 64):
@@ -311,14 +373,19 @@ def kernel_phase(dev) -> dict:
                             seed=S, inactive=True)
         got = paged_decode_attention(*args)
         want = paged_attention_plain(*args)
+        old = paged_attention_tile16(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= BF16_ATOL, (S, err)
+        assert (old.float() - want.float()).abs().max().item() <= BF16_ATOL
         errs[f"bf16_S{S}"] = err
         bound_ms, bound_by = bound(args[0], args[1], args[3], args[4])
         timings[S] = {
+            "design": paged_design(S, 7, torch.bfloat16),
             "kernel_ms": time_ms(lambda: paged_decode_attention(*args), 50,
                                  flush),
+            "tile16_design_ms": time_ms(lambda: paged_attention_tile16(*args),
+                                      50, flush),
             "plain_ms": time_ms(lambda: paged_attention_plain(*args), 10,
                                 flush),
             "library_ms": time_ms(sdpa_call(*args), 50, flush),
@@ -331,8 +398,9 @@ def kernel_phase(dev) -> dict:
                     "NW": 64}, max_abs_err=err, atol=BF16_ATOL,
              **timings[S])
     emit("kernel_check", name="paged_attention", max_abs_err=errs,
-         f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
-    return {"max_abs_err": max(errs.values()), **timings[1]}
+         designs=designs, f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
+    return {"max_abs_err": max(errs.values()), **timings[1],
+            "S64": timings[64]}
 
 
 def decode_inputs(B, S, H, KV, D, valid, dtype, dev, seed):
@@ -492,17 +560,23 @@ def flash_kernel_phase(dev) -> dict:
     bf16 times go to the kernels line."""
     errs = {}
     for i, (B, S, H, KV, D, window, softcap) in enumerate(FLASH_CASES):
-        q, k, v = flash_inputs(B, S, H, KV, D, torch.float32, dev, seed=i)
-        kw = dict(causal=True, window=window, softcap=softcap)
-        got, glse = flash_attention_forward(q, k, v, **kw)
-        want, wlse = flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = max((got - want).abs().max().item(),
-                  (glse - wlse).abs().max().item())
-        assert err <= F32_ATOL, (i, err)
-        errs[f"f32_case{i}"] = err
-        g = flash_grads_check(q, k, v, kw)
-        assert max(g.values()) <= GRAD_RTOL[torch.float32], (i, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(B, S, H, KV, D, dtype, dev, seed=i)
+            kw = dict(causal=True, window=window, softcap=softcap)
+            got, glse = flash_attention_forward(q, k, v, **kw)
+            want, wlse = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            lse_err = (glse - wlse).abs().max().item()
+            if dtype == torch.float32:
+                assert max(err, lse_err) <= F32_ATOL, (i, err, lse_err)
+            else:
+                assert err <= BF16_ATOL and lse_err <= 1e-3, (i, err,
+                                                              lse_err)
+            tag = str(dtype).split(".")[-1]
+            errs[f"{tag}_case{i}"] = max(err, lse_err)
+            g = flash_grads_check(q, k, v, kw)
+            assert max(g.values()) <= GRAD_RTOL[dtype], (i, dtype, g)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for name, shp in FLASH_SHAPES.items():
@@ -528,6 +602,10 @@ def flash_kernel_phase(dev) -> dict:
                      q, k, v, **kw), 5, flush),
                  "plain_ms": time_ms(lambda: flash_attention_plain(
                      q, k, v, **kw), 2, flush),
+                 "design": flash_design(dtype),
+                 "simt_design_ms": (time_ms(lambda: flash_attention_simt(
+                     q, k, v, **kw), 5, flush)
+                     if dtype == torch.bfloat16 else None),
                  "library_ms": (time_ms(sdpa_flash_call(
                      q, k, v, shp["window"]), 5, flush)
                      if shp["softcap"] is None else None),
@@ -870,7 +948,57 @@ def serve_phase(dev) -> int:
          pool_blocks_in_use=m["pool_blocks_in_use"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev))
 
-    # one decode step over the pool the run left, plain vs kernel attention
+    paged_decode_step(cfg, eng, dev)
+    profile_serve(cfg, params, dev, shared_prefix_prompts(
+        cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
+        "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
+        "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
+    return launches
+
+
+def reordered_plain(q, kp, vp, tables, qpos, softcap=None):
+    """``paged_attention_plain`` with its fp32 sums taken in another order:
+    the head dim of q.k and the keys of the softmax sum and of P.V
+    reversed. The same function, rounded otherwise: the control for a
+    kernel that sums its exact products in its own order."""
+    B, S, H, D = q.shape
+    bt, KV = kp.shape[1], kp.shape[2]
+    L, G = tables.shape[1] * bt, H // KV
+    rows = tables.long()
+    rev = torch.arange(L - 1, -1, -1, device=q.device)
+    kc = kp[rows].reshape(B, L, KV, D)[:, rev].flip(-1).float()
+    vc = vp[rows].reshape(B, L, KV, D)[:, rev].float()
+    qg = q.reshape(B, S, KV, G, D).flip(-1).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = (rev[None, None, :] <= qpos[:, :, None])[:, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m <= -5e29, 0.0, m)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, vc) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def paged_decode_step(cfg, eng, dev) -> None:
+    """One qwen2-7b decode step of S=64 (K1's tensor-core tiles) over the
+    pool the serve run left, plain version vs K1, bf16: 7 live rows at
+    ragged positions and lengths, and an idle slot.
+
+    A random 28-layer qwen2 is chaotic, as gemma2 is (``gather_decode_step``):
+    a few one-ulp differences in a layer's attention outputs grow through
+    the residual stream as the depth grows. So the step is checked as
+    gemma2's is: (1) every layer's K1 output against its plain version on
+    the same inputs (the kernel's output carried on), within one bf16 ulp
+    of the layer's scale; (2) the step cut to its first 4 layers, kernel
+    vs plain logits within ``LOGITS_RTOL`` of their scale; (3) at 2, 4, 8,
+    14 and all 28 layers, the distance of K1's logits from the plain
+    version's beside two controls': the plain version with its fp32 sums
+    in another order (``reordered_plain``, which rounds about as many
+    outputs a layer to the neighbouring bf16 value as K1 does) and one
+    nudged ulp in the first layer; the full step's logits finite."""
     rng = np.random.default_rng(1)
     B, S, NW = 8, 64, eng.table_width
     rows = 1 + rng.permutation(eng.pool.num_blocks - 1)[:B * NW]
@@ -882,22 +1010,98 @@ def serve_phase(dev) -> int:
                         device=dev)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
         np.int32)).to(dev)
-    logits = {}
-    for impl in ("xla", "flash"):
-        pool = {"stack": {k: {n: t.clone() for n, t in leaf.items()}
-                          for k, leaf in eng.pool.buffers["stack"].items()}}
-        out, _ = lm_decode_step(cfg.replace(decode_kernel=impl), eng.params,
-                                pool, toks, pos, seq_lens=lens,
-                                paged_tables=tables)
-        logits[impl] = out[:-1, 0].float()           # live rows
-        del pool
-    compare_logits("lm_decode_step plain vs kernel attention, bf16, S=64, "
-                   "7 live rows + 1 idle", logits)
-    profile_serve(cfg, params, dev, shared_prefix_prompts(
-        cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
-        "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
-        "tokens, 8 slots, chunk 64", "paged_attention")
-    return launches
+
+    def step(n, attend):
+        """Live rows' logits of the step cut to its first ``n`` layers,
+        over fresh copies of the pool; ``attend`` stands in for K1's
+        wrapper inside the layers."""
+        pool = {"stack": tree_map(torch.clone,
+                                  _slice(eng.pool.buffers["stack"], n))}
+        params = {**eng.params, "stack": _slice(eng.params["stack"], n)}
+        wrapper = model_layers.paged_decode_attention
+        model_layers.paged_decode_attention = attend
+        try:
+            out, _ = lm_decode_step(
+                cfg.replace(decode_kernel="flash", n_layers=n), params, pool,
+                toks, pos, seq_lens=lens, paged_tables=tables)
+        finally:
+            model_layers.paged_decode_attention = wrapper
+        torch.cuda.synchronize()
+        return out[:-1, 0].float()
+
+    def against_plain(fn, errs):
+        """``fn`` in the layers, each call's distance from the plain
+        version on the same inputs kept in ``errs``."""
+        def attend(q, kp, vp, tb, qp, softcap=None):
+            got = fn(q, kp, vp, tb, qp, softcap=softcap)
+            want = paged_attention_plain(q, kp, vp, tb, qp, softcap)
+            diff = got.float() - want.float()
+            errs.append((diff.abs().max().item(),
+                         want.float().abs().max().item(),
+                         int((diff != 0).sum().item())))
+            return got
+        return attend
+
+    def nudged():
+        """The plain version, its first call's first output one ulp up."""
+        calls = []
+
+        def attend(q, kp, vp, tb, qp, softcap=None):
+            out = paged_attention_plain(q, kp, vp, tb, qp, softcap)
+            if not calls:
+                out[0, 0, 0, 0] = (out[0, 0, 0, 0].float()
+                                   * (1 + 2 ** -7)).to(out.dtype)
+            calls.append(1)
+            return out
+        return attend
+
+    layer_errs = {"kernel": [], "reordered": []}
+    full = cfg.n_layers
+    logits = {"plain": step(full, paged_attention_plain),
+              "kernel": step(full, against_plain(paged_decode_attention,
+                                                 layer_errs["kernel"])),
+              "reordered": step(full, against_plain(reordered_plain,
+                                                    layer_errs["reordered"]))}
+    worst = {}
+    for route, errs in layer_errs.items():
+        assert len(errs) == full, (route, errs)
+        worst[route] = max(e / s for e, s, _ in errs)
+        assert worst[route] <= 2 ** -7, (route, errs)     # one bf16 ulp
+    assert all(torch.isfinite(x).all() for x in logits.values())
+
+    compare_logits(f"qwen2-7b lm_decode_step, first 4 of {full} layers, "
+                   "plain version vs K1, bf16, S=64, 7 live rows + 1 idle",
+                   {"xla": step(4, paged_attention_plain),
+                    "flash": step(4, paged_decode_attention)})
+
+    by_depth = {}
+    for n in (2, 4, 8, 14, full):
+        if n == full:
+            got = dict(logits, one_ulp=step(n, nudged()))
+        else:
+            got = {"plain": step(n, paged_attention_plain),
+                   "kernel": step(n, paged_decode_attention),
+                   "reordered": step(n, reordered_plain),
+                   "one_ulp": step(n, nudged())}
+        plain = got.pop("plain")
+        scale = plain.abs().max().item()
+        by_depth[n] = {r: (x - plain).abs().max().item() / scale
+                       for r, x in got.items()}
+    plain, kern = logits["plain"], logits["kernel"]
+    emit("decode_step", what=f"qwen2-7b lm_decode_step, {full} layers, "
+         "plain version vs K1 and vs the plain version summed in another "
+         "order, bf16, S=64, 7 live rows + 1 idle",
+         max_abs_err=(kern - plain).abs().max().item(),
+         logits_scale=plain.abs().max().item(),
+         argmax_agreement=(kern.argmax(-1) == plain.argmax(-1))
+         .float().mean().item(),
+         reordered_argmax_agreement=(logits["reordered"].argmax(-1)
+                                     == plain.argmax(-1)).float().mean()
+         .item(),
+         logits_err_over_scale_by_depth=by_depth, rtol=LOGITS_RTOL,
+         per_layer_max_err_over_scale=worst,
+         per_layer_errs_scales_ndiff=layer_errs,
+         elements_per_layer=B * S * cfg.n_heads * cfg.d_head)
 
 
 def compare_logits(what, logits) -> None:
@@ -1081,10 +1285,11 @@ def device_ms_by_kernel(prof) -> dict:
 
 
 def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
-                  cap_blocks=96) -> None:
+                  cap_blocks=96, match=None) -> None:
     """Where a serve step's time goes: a short run of a path's shape under
     torch.profiler, CUDA activity only. Device busy share = summed kernel
-    time / wall time."""
+    time / wall time. ``kernel``'s device time sums the kernels whose
+    names hold ``match`` (``kernel`` itself by default)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1103,7 +1308,7 @@ def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
 
     def total(pred):
         return sum(t for n, t in by_name.items() if pred(n.lower()))
-    kernel_ms = total(lambda n: kernel in n)
+    kernel_ms = total(lambda n: (match or kernel) in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit("profile", config=cfg.arch, run=run, engine_steps=eng.steps,
          wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -1226,7 +1431,7 @@ def train_phase(dev) -> dict:
         "layers (RRL + RR tail), bf16, random weights (seed 0)")
     layer_check(cfg, state, batch)
     profile_train(cfg, step_fn, state, batch, "5 layers",
-                  {"flash_attention": "flash_attention_kernel",
+                  {"flash_attention": "flash_wgmma_kernel",
                    "rglru_scan": "rglru_"})
     return counts
 
@@ -1419,7 +1624,10 @@ def main() -> int:
                             k1_launches, k1)
     k1_entry.update(tpu_kernel="src/repro/kernels/paged_attention.py:"
                     "_paged_kernel", max_err=k1["max_abs_err"],
-                    kernel_ms=k1["kernel_ms"])
+                    kernel_ms=k1["kernel_ms"], shape="B=8 S=1 H=28 KV=4 "
+                    "D=128 bt=16 NW=64, bf16", design=k1["design"],
+                    tile16_design_ms=k1["tile16_design_ms"],
+                    kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"])
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
                             k2_launches, k2)
@@ -1432,6 +1640,7 @@ def main() -> int:
     k3_entry.update(tpu_kernel="src/repro/kernels/flash_attention.py:"
                     "_flash_kernel", shape="recurrentgemma L layer: B=2 "
                     "S=4096 H=16 KV=1 D=256 window 2048, bf16",
+                    design=k3["design"], simt_design_ms=k3["simt_design_ms"],
                     gemma2_G=k3["gemma2_G"])
     k5_entry = kernel_entry("rglru_scan",
                             "src/repro/kernels/rglru_scan.py:28",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so``,
-where the hash covers the source and the flags: an edited source builds
-anew, an unchanged one is reused. ``_build/`` lives beside this module and
+where the hash covers the source, every header under ``csrc/`` and the
+flags: an edited source or header builds anew, an unchanged one is
+reused. ``_build/`` lives beside this module and
 is ignored by git. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

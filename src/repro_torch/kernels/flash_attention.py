@@ -11,10 +11,13 @@ gives 0, as the Pallas finalize does.
 * ``flash_attention`` — the wrapper, a ``torch.autograd.Function``. Its
   forward launches the hand-written kernel ``csrc/flash_attention.cu``
   (built at first use) on CUDA tensors or raises, and runs
-  ``flash_attention_plain`` on CPU tensors. Its backward is plain
-  PyTorch, ``flash_attention_bwd_plain``, on both devices: the reference
-  has no backward kernel (its gradient is XLA's autodiff of the dense or
-  chunked attention), so the backward is not a kernel port.
+  ``flash_attention_plain`` on CPU tensors. The kernel's design follows
+  the dtype (``flash_design``): bf16 runs its products on the tensor
+  cores (``wgmma``), f32 on the fp32 SIMT units (so f32 products stay
+  f32). Its backward is plain PyTorch, ``flash_attention_bwd_plain``, on
+  both devices: the reference has no backward kernel (its gradient is
+  XLA's autodiff of the dense or chunked attention), so the backward is
+  not a kernel port.
 * ``flash_attention_plain`` — the forward in plain PyTorch, a tiled online
   softmax that walks, for each query tile, only the key tiles it can see.
   It returns the output and the fp32 log-sum-exp the backward needs.
@@ -25,6 +28,7 @@ gives 0, as the Pallas finalize does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -148,12 +152,20 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_design(dtype: torch.dtype) -> str:
+    """The kernel's design for inputs of ``dtype``: "wgmma" (Hopper's
+    warpgroup tensor-core products) for bf16, "simt" (fp32 SIMT units)
+    for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -192,8 +204,8 @@ def _check_cuda_args(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal, window, softcap):
-    """K3 on the current stream: (out, lse). Counts one launch."""
+def _launch(q, k, v, causal, window, softcap, design):
+    """K3 in ``design`` on the current stream: (out, lse)."""
     _check_cuda_args(q, k, v, window)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
@@ -204,19 +216,20 @@ def _launch(q, k, v, causal, window, softcap):
             lse.data_ptr(), B, S, H, k.shape[2], D, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(D),
             float(softcap or 0.0), _DTYPE_CODES[q.dtype],
+            int(design == "simt"),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
     return out, lse
 
 
 def flash_attention_forward(q, k, v, *, causal: bool = True,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None):
-    """(out, lse) without autograd: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    """(out, lse) without autograd: the kernel on CUDA tensors (one launch
+    counted in ``flash_attention.launches``), the plain version on CPU
+    tensors."""
     if q.device.type == "cpu":
         for t in (k, v):
             if t.device.type != "cpu":
@@ -227,7 +240,19 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    return _launch(q, k, v, causal, window, softcap)
+    res = _launch(q, k, v, causal, window, softcap, flash_design(q.dtype))
+    flash_attention.launches += 1
+    return res
+
+
+def flash_attention_simt(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None):
+    """(out, lse) of the kernel's SIMT design on CUDA tensors of either
+    dtype: for bf16 the kernel's earlier design, the yardstick
+    ``chip_smoke.py`` times the wgmma design against. No path of the
+    port calls it, and it counts no launch."""
+    return _launch(q, k, v, causal, window, softcap, "simt")
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -12,7 +12,13 @@ rows. ``S`` query tokens and the ``G`` query heads of one KV head form one
 
 * ``paged_decode_attention`` — the wrapper. On CUDA tensors it launches
   the hand-written kernel ``csrc/paged_attention.cu`` (built at first
-  use) or raises; on CPU tensors it runs the plain version.
+  use) or raises; on CPU tensors it runs the plain version. The kernel
+  has three designs, chosen from the dtype and the shapes alone
+  (``paged_design``): tensor-core tiles for bf16 (16 rows for the decode
+  steps, 64 for the prefill chunks), flash-decoding on the SIMT units for
+  f32. Each splits the block table's key range over blocks and merges the
+  splits in a second pass; the plan (``split_plan``) is fixed by the
+  shapes and cached, so the host never reads ``qpos``.
 * ``paged_attention_plain`` — the same function in plain PyTorch: gather
   the pages, dense fp32 masked softmax. The CPU tests use it, and the
   kernel is held against it on the card.
@@ -20,8 +26,9 @@ rows. ``S`` query tokens and the ``G`` query heads of one KV head form one
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,6 +36,20 @@ from . import build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODES = {"simt": 0, "mma64": 1, "mma16": 2}
+# rows a KV head (S*G) from which bf16 calls take 64-row tensor-core tiles
+MMA64_MIN_ROWS = 17
+# the table's key range is split over blocks until the grid holds about
+# _BLOCKS_PER_SM blocks per SM. Per design: the rows a block takes (at most;
+# the grid is this many times smaller than the rows a KV head), the fewest
+# keys a split walks (two of the mma kernels' stages, so a block's copies
+# overlap its products), and the step its length is a multiple of (the
+# simt kernel's 8 half-warps x 4 keys; the mma kernels' stages)
+_BLOCKS_PER_SM = 4
+# a block looks up its keys' pool rows into shared memory: at most this many
+_MAX_SPLIT_KEYS = 4096
+_SPLIT_SHAPE = {"simt": (8, 64, 32), "mma64": (64, 128, 64),
+                "mma16": (16, 128, 64)}
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -65,9 +86,56 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
+def paged_design(S: int, G: int, dtype: torch.dtype) -> str:
+    """The kernel's design for a call of S query tokens of G heads a KV
+    head: for bf16, tensor-core tiles of 64 rows ("mma64", more than 16
+    rows a KV head: the prefill chunks) or of 16 rows whose warps share
+    the keys ("mma16": the decode steps); for f32 the SIMT units
+    ("simt"), so f32 products stay f32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "mma64" if S * G >= MMA64_MIN_ROWS else "mma16"
+
+
+def split_plan(design: str, B: int, S: int, G: int, KV: int, bt: int,
+               NW: int, n_sm: int) -> Tuple[int, int]:
+    """(n_splits, keys_per_split) for ``design``: ranges of keys_per_split
+    keys that cover the table's [0, NW*bt) exactly (the last one may run
+    past its end), enough of them for about ``_BLOCKS_PER_SM`` blocks per
+    SM over the B x KV x row-group grid, none longer than
+    ``_MAX_SPLIT_KEYS``. Integers in, integers out: no tensor value enters
+    the plan."""
+    rows, min_keys, step = _SPLIT_SHAPE[design]
+    n_keys = NW * bt
+    base = B * KV * -(-(S * G) // rows)
+    want = -(-_BLOCKS_PER_SM * n_sm // base)
+    n = max(1, min(want, -(-n_keys // min_keys)),
+            -(-n_keys // _MAX_SPLIT_KEYS))
+    per = -(-n_keys // n)
+    per = -(-per // step) * step
+    return -(-n_keys // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, S: int, H: int, KV: int, bt: int, NW: int,
+          dtype: torch.dtype, device: int) -> Tuple[int, int, int]:
+    """(design code, n_splits, keys_per_split) for a call's shapes on a
+    device, computed once per shape."""
+    design = paged_design(S, H // KV, dtype)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return (_DESIGN_CODES[design],
+            *split_plan(design, B, S, H // KV, KV, bt, NW, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     fn = lib.paged_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.paged_attention_tile16_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
@@ -139,10 +207,47 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"got {q.device}")
     _check_cuda_args(q, k_pages, v_pages, tables, qpos)
     B, S, H, D = q.shape
+    bt, KV, NW = k_pages.shape[1], k_pages.shape[2], tables.shape[1]
+    dev = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    design, n_splits, per = _plan(B, S, H, KV, bt, NW, q.dtype, dev)
+    out = torch.empty_like(q)
+    part_ml = part_acc = None
+    if n_splits > 1:
+        # per-split softmax state (m, l) and unnormalised accumulators of
+        # each output row, merged by the kernel's second pass
+        part_ml = torch.empty((B * S * H, n_splits, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((B * S * H, n_splits, D),
+                               dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _lib().paged_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
+            0 if part_ml is None else part_ml.data_ptr(),
+            0 if part_acc is None else part_acc.data_ptr(),
+            B, S, H, KV, D, bt, NW, n_splits, per,
+            1.0 / math.sqrt(D), float(softcap or 0.0), _DTYPE_CODES[q.dtype],
+            design, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_attention_tile16(q, k_pages, v_pages, tables, qpos, *,
+                           softcap=None) -> torch.Tensor:
+    """The kernel's earlier design (one block per 16 rows, KV head and b;
+    32-key tiles walked serially on the SIMT units) on CUDA tensors:
+    the yardstick ``chip_smoke.py`` times the current design against. No
+    path of the port calls it, and it counts no launch."""
+    _check_cuda_args(q, k_pages, v_pages, tables, qpos)
+    B, S, H, D = q.shape
     bt, KV = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = _lib().paged_attention_launch(
+        rc = _lib().paged_attention_tile16_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
             B, S, H, KV, D, bt, tables.shape[1],
@@ -151,7 +256,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")
-    paged_decode_attention.launches += 1
     return out
 
 

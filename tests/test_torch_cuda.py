@@ -92,6 +92,88 @@ def test_wrapper_raises_on_what_kernel_does_not_take(dev):
         paged_decode_attention(args[0], args[1].cpu(), *args[2:])
 
 
+# (B, S, H, KV, D, bt, NW, softcap): every branch of the simt, mma16 and
+# mma64 designs. A long table (NW*bt = 4096, split over many blocks), qwen2's
+# G=7 at D=8 and D=128, D=256 both ways, G=1, softcaps both ways, a bf16
+# chunk whose S*G = 140 is no multiple of the 64-row tile, S*G = 16 and 17
+# on either side of the switch from 16-row to 64-row tiles, and D=64 over
+# 4096 keys, whose plans hold more splits (32, 64) than the merge pass has
+# lanes on D (D/4 = 16)
+SPLIT_MMA_CASES = [
+    (8, 1, 28, 4, 128, 16, 256, None),
+    (3, 1, 7, 1, 8, 8, 12, None),
+    (4, 2, 28, 4, 128, 16, 32, None),
+    (2, 1, 16, 2, 256, 16, 20, None),
+    (2, 9, 4, 2, 256, 16, 5, None),
+    (4, 1, 4, 4, 64, 8, 16, None),
+    (2, 1, 28, 4, 128, 16, 40, 30.0),
+    (2, 8, 8, 2, 64, 16, 16, 50.0),
+    (4, 20, 28, 4, 128, 16, 24, None),
+    (3, 16, 4, 4, 64, 16, 8, None),
+    (3, 17, 4, 4, 64, 16, 8, None),
+    (2, 1, 8, 1, 64, 16, 256, None),
+]
+
+
+def _ragged_inputs(case, dtype, dev, seed):
+    """_inputs with ragged positions: row 0 ends at the table's last key,
+    row 1 starts at 0, the last row is an idle slot (all-zero table,
+    positions from 0) and, with B >= 4, row 2 sees no key (qpos -1)."""
+    q, kp, vp, tables, qpos = _inputs(case, dtype, dev, seed)
+    B, S = qpos.shape
+    L = tables.shape[1] * kp.shape[1]
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    qpos[0] = L - S + ar
+    qpos[1] = ar
+    tables[-1] = 0
+    qpos[-1] = ar
+    if B >= 4:
+        qpos[2] = -1
+    return [q, kp, vp, tables, qpos]
+
+
+@pytest.mark.parametrize("case", SPLIT_MMA_CASES)
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+def test_kernel_designs_match_plain(dev, case, dtype, atol):
+    """Every design against the plain version on ragged positions, an idle
+    slot and a row that sees no key (0 out); one launch counted a call,
+    the merge pass included."""
+    from repro_torch.kernels.paged_attention import paged_design
+    B, S, H, KV = case[:4]
+    args = _ragged_inputs(case, getattr(torch, dtype), dev,
+                          seed=sum(case[:7]))
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, softcap=case[-1])
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_attention_plain(*args, softcap=case[-1])
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    if B >= 4:
+        assert not got[2].any()
+    assert paged_design(S, H // KV, getattr(torch, dtype)) == (
+        "simt" if dtype == "float32" else
+        "mma64" if S * H // KV > 16 else "mma16")
+
+
+def test_kernel_merges_many_splits(dev):
+    """Decode calls whose plan splits the table over many blocks, in each
+    design: the merge pass runs inside the one counted launch."""
+    from repro_torch.kernels import paged_attention as pa
+    case = (8, 1, 28, 4, 128, 16, 256, None)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        args = _ragged_inputs(case, dtype, dev, seed=3)
+        design = pa.paged_design(1, 7, dtype)
+        assert pa.split_plan(design, 8, 1, 7, 4, 16, 256, n_sm)[0] > 1
+        before = paged_decode_attention.launches
+        got = paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == before + 1
+        want = paged_attention_plain(*args)
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+
 # (B, S, H, KV, D, window, softcap, valid lengths): the reference test's
 # cases (valid S - 7i), rows that see nothing or one slot, the gemma2 main
 # path's shapes (ragged at S=128, the wrapped L window at S=4096, split
@@ -229,6 +311,35 @@ def test_flash_kernel_matches_plain(dev, case, dtype, atol):
     for g, r in zip(grads, ref):
         assert (g - r).abs().max().item() <= 1e-4 * max(
             r.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_wgmma_gradients_through_function(dev, case):
+    """bf16 through the wgmma design: the lse within 1e-3 of the
+    plain forward's (fp32 scores from exact bf16 products), and the
+    gradients through the Function (K3's out and lse, the plain backward)
+    against the plain backward fed the plain forward's, each within 2e-2
+    of its largest magnitude (one bf16 ulp of out, carried through
+    dout . out)."""
+    from repro_torch.kernels.flash_attention import flash_design
+    assert flash_design(torch.bfloat16) == "wgmma"
+    window, softcap = case[5], case[6]
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=sum(case[:5]))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    _, klse = flash_attention_forward(q, k, v, **kw)
+    out, lse = flash_attention_plain(q, k, v, **kw)
+    assert (klse - lse).abs().max().item() <= 1e-3
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.launches
+    grads = torch.autograd.grad(flash_attention(*leaves, **kw), leaves,
+                                dout)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    for g, r in zip(grads, ref):
+        assert (g.float() - r.float()).abs().max().item() <= 2e-2 * max(
+            r.float().abs().max().item(), 1e-30)
 
 
 def test_flash_bwd_plain_from_kernel_lse(dev):
