@@ -14,12 +14,13 @@ exits non-zero:
              paths' shapes) and time both, the library yardstick and the
              least time the card could take. K1 is the paged-attention
              kernel (its designs, tensor-core tiles in bf16 and SIMT in
-             f32, each split over the block table, timed beside its
-             earlier 16-row SIMT design), K2 the flash-decoding kernel, K3
-             the flash-attention kernel of the training forward (forward
-             and, through its autograd Function, backward, in f32 and
-             bf16; recurrentgemma's L layer and gemma2's G layer at
-             S=4096, timed beside its earlier SIMT design), K5 the RG-LRU
+             f32, each split over the block table), K2 the flash-decoding
+             kernel (the reference test's cases, then the gather path's
+             widths on ragged, empty, full and wrapped rows in f32 and
+             bf16), K3 the flash-attention kernel of the training forward
+             (forward and, through its autograd Function, backward, in
+             f32 and bf16; recurrentgemma's L layer and gemma2's G layer
+             at S=4096), K5 the RG-LRU
              scan (forward and reverse mode at B=2, T=4096, W=4096), K4
              the RWKV6 WKV
              (f32 on the reference test's cases and at logw = -5, then
@@ -88,11 +89,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import LoaderConfig, TrainLoader  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_simt, flash_design)
-from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention_tile16, paged_design)
+from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_design  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
+# the module, which the package's function of the same name shadows
+decode_attention_mod = sys.modules[  # noqa: E402
+    "repro_torch.kernels.decode_attention"]
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  decode_attention_plain, flash_attention,
                                  flash_attention_bwd_plain,
@@ -118,6 +120,7 @@ from repro_torch.train import (OptConfig, TrainConfig,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12             # dense tensor-core tf32
 KERNELS = ["paged_attention", "decode_attention", "flash_attention",
            "rglru_scan", "rwkv6_scan"]
 COUNTED = (paged_decode_attention, decode_attention, flash_attention,
@@ -159,6 +162,19 @@ DECODE_CASES = [
     (3, 256, 4, 4, 64, 64, None),
     (2, 96, 8, 2, 128, None, None),
     (3, 40, 4, 2, 32, None, 50.0),
+]
+# K2 at the gather path's widths, (B, S, H, KV, D, window, softcap, valid
+# lengths), in f32 and bf16 (as in tests/test_torch_cuda.py): the serve
+# cell's ragged S=128, S=4096 under a window of its width with valid
+# lengths past S, every row seeing nothing, every row at S, and G=8
+# filling the 8-head block over a split cache
+DECODE_EDGE_CASES = [
+    (8, 128, 32, 16, 128, None, 50.0, [80, 128, 1, 96, 33, 64, 127, 5]),
+    (8, 4096, 32, 16, 128, 4096, 50.0,
+     [4500, 5000, 4097, 8191, 4096, 6000, 4200, 9000]),
+    (8, 4096, 32, 16, 128, None, 50.0, [0] * 8),
+    (8, 4096, 32, 16, 128, None, 50.0, [4096] * 8),
+    (4, 2048, 32, 4, 128, None, 30.0, [2048, 1000, 1, 0]),
 ]
 # f32: kernel and plain version both sum in fp32, in different orders
 F32_ATOL = 1e-4
@@ -336,7 +352,7 @@ def sdpa_call(q, kp, vp, tables, qpos):
 def kernel_phase(dev) -> dict:
     """K1 against its plain version: f32 on the reference test's cases,
     every design in f32 and bf16 on ``PAGED_DESIGN_CASES``; then times at
-    the paged path's shapes, beside its earlier 16-row SIMT design's."""
+    the paged path's shapes."""
     errs = {}
     for i, case in enumerate(PAGED_CASES):
         *shape, softcap = case
@@ -373,19 +389,15 @@ def kernel_phase(dev) -> dict:
                             seed=S, inactive=True)
         got = paged_decode_attention(*args)
         want = paged_attention_plain(*args)
-        old = paged_attention_tile16(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= BF16_ATOL, (S, err)
-        assert (old.float() - want.float()).abs().max().item() <= BF16_ATOL
         errs[f"bf16_S{S}"] = err
         bound_ms, bound_by = bound(args[0], args[1], args[3], args[4])
         timings[S] = {
             "design": paged_design(S, 7, torch.bfloat16),
             "kernel_ms": time_ms(lambda: paged_decode_attention(*args), 50,
                                  flush),
-            "tile16_design_ms": time_ms(lambda: paged_attention_tile16(*args),
-                                      50, flush),
             "plain_ms": time_ms(lambda: paged_attention_plain(*args), 10,
                                 flush),
             "library_ms": time_ms(sdpa_call(*args), 50, flush),
@@ -445,10 +457,11 @@ def sdpa_decode_call(q, k, v, valid):
 
 def decode_kernel_phase(dev) -> dict:
     """K2 against its plain version: f32 on the reference test's cases
-    and on rows that see nothing, one slot or all, then bf16 at the gather
-    path's shapes (gemma2-27b: B=8, H=32, KV=16, D=128, softcap 50) with
-    ragged valid lengths at S=128 and the wrapped rolling window at
-    S=4096, timed."""
+    and on rows that see nothing, one slot or all, f32 and bf16 on
+    ``DECODE_EDGE_CASES``, then bf16 at the gather path's shapes
+    (gemma2-27b: B=8, H=32, KV=16, D=128, softcap 50) with ragged valid
+    lengths at S=128 and the wrapped rolling window at S=4096, timed with
+    the wrapper's host time and the split plan."""
     errs = {}
     for i, (B, S, H, KV, D, window, softcap) in enumerate(DECODE_CASES):
         valid = ([0, 1, S] if i == len(DECODE_CASES) - 1
@@ -461,6 +474,20 @@ def decode_kernel_phase(dev) -> dict:
         err = (got - want).abs().max().item()
         assert err <= F32_ATOL, (i, err)
         errs[f"f32_case{i}"] = err
+    for i, (B, S, H, KV, D, window, softcap, valid) in enumerate(
+            DECODE_EDGE_CASES):
+        for dtype, atol in ((torch.float32, F32_ATOL),
+                            (torch.bfloat16, BF16_ATOL)):
+            args = decode_inputs(B, S, H, KV, D, valid, dtype, dev,
+                                 seed=200 + i)
+            got = decode_attention(*args, window=window, softcap=softcap)
+            want = decode_attention_plain(*args, window, softcap)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= atol, (i, dtype, err)
+            assert all(not got[b].any() for b, vl in enumerate(valid)
+                       if vl == 0), i
+            errs[f"{str(dtype).split('.')[-1]}_edge_case{i}"] = err
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for S, valid in ((128, [80, 128, 1, 96, 33, 64, 127, 5]),
@@ -484,6 +511,8 @@ def decode_kernel_phase(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_host_ms": host_ms(lambda: decode_attention(
                 *args, softcap=50.0), 50),
+            "split_plan": decode_attention_mod._plan(
+                8, S, 32, 16, 128, -1, torch.bfloat16, dev.index or 0),
         }
         emit("kernel", name="decode_attention", dtype="bfloat16",
              shape={"B": 8, "S": S, "H": 32, "KV": 16, "D": 128,
@@ -603,9 +632,6 @@ def flash_kernel_phase(dev) -> dict:
                  "plain_ms": time_ms(lambda: flash_attention_plain(
                      q, k, v, **kw), 2, flush),
                  "design": flash_design(dtype),
-                 "simt_design_ms": (time_ms(lambda: flash_attention_simt(
-                     q, k, v, **kw), 5, flush)
-                     if dtype == torch.bfloat16 else None),
                  "library_ms": (time_ms(sdpa_flash_call(
                      q, k, v, shp["window"]), 5, flush)
                      if shp["softcap"] is None else None),
@@ -682,25 +708,30 @@ def rwkv_inputs(B, T, H, N, dtype, dev, seed, logw=None):
 
 
 def rwkv_bound(B, T, H, N, C, isz):
-    """Least time for K4: the larger of its operations over the fp32 SIMT
-    peak and its bytes (r, k, v read in their dtype, logw and u read and
-    out and the last state written in fp32, once each) over HBM
-    bandwidth. Operations, for each row and head: 4N for each visible
-    (token t, key j <= t) pair of a chunk (the score's dot product and its
-    product with v; the diagonal's score is r . (u k), N more a token),
-    2N^2 a token for the state update and 2N^2 a token past the first
-    chunk for the carried state's product (the state is zero before).
-    Chunks of C tokens, the last one ragged, as the kernel walks them."""
+    """Least time for K4: the larger of its operations over the card's peak
+    for the route they take and its bytes (r, k, v read in their dtype,
+    logw and u read and out and the last state written in fp32, once each)
+    over HBM bandwidth. Operations, for each row and head: 4N for each
+    visible (token t, key j <= t) pair of a chunk (the score's dot product
+    and its product with v; the diagonal's score is r . (u k), N more a
+    token), on the fp32 SIMT units; 2N^2 a token for the state update and
+    2N^2 a token past the first chunk for the carried state's product (the
+    state is zero before), on the tensor cores in 3xTF32, three tf32
+    products each. Chunks of C tokens, the last one ragged, as the kernel
+    walks them. Returns (bound ms, what bounds it, operations, bytes, the
+    operations' time with all of them on the fp32 SIMT units)."""
     nc = -(-T // C)
     tail = T - (nc - 1) * C
     pairs = (nc - 1) * C * (C + 1) // 2 + tail * (tail + 1) // 2
-    ops = B * H * (4 * N * pairs + N * T + 2 * N * N * T
-                   + 2 * N * N * (T - min(C, T)))
+    simt_ops = B * H * (4 * N * pairs + N * T)
+    state_ops = B * H * (2 * N * N * T + 2 * N * N * (T - min(C, T)))
     nbytes = B * T * H * N * (3 * isz + 4 + 4) + H * N * 4 + B * H * N * N * 4
-    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_ops = (simt_ops / PEAK_OPS_PER_S[torch.float32]
+             + 3 * state_ops / TF32_OPS_PER_S) * 1e3
+    t_simt = (simt_ops + state_ops) / PEAK_OPS_PER_S[torch.float32] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), ops, nbytes
+    return (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else
+            "operations", simt_ops + state_ops, nbytes, t_simt)
 
 
 def carry_loop(D, M):
@@ -809,7 +840,7 @@ def rwkv_kernel_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    bound_ms, bound_by, ops, nbytes = rwkv_bound(B, T, H, N, C, 2)
+    bound_ms, bound_by, ops, nbytes, simt_ms = rwkv_bound(B, T, H, N, C, 2)
     t = {"kernel_ms": time_ms(lambda: rwkv6_wkv_forward(*xs, chunk=C), 20,
                               flush),
          "plain_ms": time_ms(lambda: rwkv6_wkv_plain(*xs, chunk=C), 2,
@@ -823,7 +854,7 @@ def rwkv_kernel_phase(dev) -> dict:
          "library_ms": None, "library": "none: no single PyTorch call "
          "computes the WKV recurrence",
          "bound_ms": bound_ms, "bound_by": bound_by, "bound_flop": ops,
-         "bound_bytes": nbytes}
+         "bound_bytes": nbytes, "bound_all_simt_ms": simt_ms}
     emit("kernel", name="rwkv6_wkv", dtype="bfloat16 r, k, v; float32 "
          "logw, u, out, state", shape=RWKV_SHAPE, max_abs_err=errs,
          max_rel_err=rel, rtol=RWKV_RTOL, grad_rel_err=grads,
@@ -1450,7 +1481,7 @@ def rwkv_train_phase(dev) -> dict:
         "(seed 0)")
     rwkv_layer_check(cfg, state, batch)
     profile_train(cfg, step_fn, state, batch, "32 layers",
-                  {"rwkv6_wkv": "rwkv6_wkv_kernel"})
+                  {"rwkv6_wkv": "rwkv6_"})
     # the whole step with the backward's state carry of rwkv6_scan.py and
     # with a plain loop over the chunks, in the order A B B A
     steps = []
@@ -1626,7 +1657,6 @@ def main() -> int:
                     "_paged_kernel", max_err=k1["max_abs_err"],
                     kernel_ms=k1["kernel_ms"], shape="B=8 S=1 H=28 KV=4 "
                     "D=128 bt=16 NW=64, bf16", design=k1["design"],
-                    tile16_design_ms=k1["tile16_design_ms"],
                     kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"])
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
@@ -1640,8 +1670,7 @@ def main() -> int:
     k3_entry.update(tpu_kernel="src/repro/kernels/flash_attention.py:"
                     "_flash_kernel", shape="recurrentgemma L layer: B=2 "
                     "S=4096 H=16 KV=1 D=256 window 2048, bf16",
-                    design=k3["design"], simt_design_ms=k3["simt_design_ms"],
-                    gemma2_G=k3["gemma2_G"])
+                    design=k3["design"], gemma2_G=k3["gemma2_G"])
     k5_entry = kernel_entry("rglru_scan",
                             "src/repro/kernels/rglru_scan.py:28",
                             train_launches["rglru_scan"]

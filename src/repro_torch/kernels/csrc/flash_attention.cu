@@ -50,9 +50,6 @@
 // conflict); the 8 lanes that share a row merge its max and sum by
 // shuffles. P*V: the probabilities go through shared memory; each thread
 // owns 4 rows x NJ chunks of 4 output columns of the fp32 accumulator.
-// It was the kernel's first design; flash_attention_launch's `simt` flag
-// runs it on bf16 too, the yardstick chip_smoke.py times the wgmma kernel
-// against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -717,14 +714,14 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
 // q, out: (B, S, H, D); k, v: (B, S, KV, D); lse: (B, H, S) fp32. All
 // contiguous and 16-byte aligned, D a multiple of 8 up to 256. causal 0/1;
 // window < 0 turns the window off, softcap <= 0 the softcap. dtype 0 =
-// float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel; with simt = 1 the
-// SIMT kernel instead). Launches on `stream` and returns the CUDA
-// error code (0 on success); does not synchronise.
+// float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel). Launches on
+// `stream` and returns the CUDA error code (0 on success); does not
+// synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int S, int H, int KV, int D,
                                       int causal, int window, float scale,
-                                      float softcap, int dtype, int simt,
+                                      float softcap, int dtype,
                                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
@@ -734,9 +731,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, lse, B, S, H, KV, D, causal, window,
                            scale, softcap, st);
-  if (dtype == 1 && simt)
-    return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, S, H, KV, D, causal,
-                                   window, scale, softcap, st);
   if (dtype == 1)
     return dispatch_wgmma(q, k, v, out, lse, B, S, H, KV, D, causal, window,
                           scale, softcap, st);

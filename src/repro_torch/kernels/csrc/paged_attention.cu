@@ -51,11 +51,6 @@
 // three bf16 parts (8 + 8 + 8 bits, each product with bf16 V exact in
 // fp32), so PV is the reference's fp32 PV up to summation order, at a cost
 // hidden behind the page reads.
-//
-// The earlier design (one block per 16 rows, KV head and b, 32-key
-// tiles walked serially on the SIMT units) stays below as
-// paged_attention_tile16_launch, the yardstick chip_smoke.py times the
-// redesign against; no wrapper of the serve path calls it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -806,221 +801,6 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 #undef MMA_LAUNCH
 }
 
-// --------------------------------------------- earlier design (tile16)
-
-namespace tile16 {
-
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kTileKeys = 32;                 // keys staged per step
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// one block of 4 warps per (16 query rows, kv head, b), each warp 4 rows;
-// for QK^T lane j takes key j of the staged tile, for PV lane l owns output
-// dims l, l+32, ... NV = ceil(D / 32) rounded up to a power of two.
-template <typename T, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-kernel(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const int* __restrict__ tables,
-       const int* __restrict__ qpos, T* __restrict__ out, int S, int H,
-       int KV, int D, int bt, int NW, float scale, float softcap) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int ld = D + kVec;
-  const int tile = kTileKeys * ld;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);       // [kRows][D] q * scale
-  T* sk = reinterpret_cast<T*>(sq + kRows * D);     // [2][kTileKeys][ld]
-  T* sv = sk + 2 * tile;                            // [2][kTileKeys][ld]
-  __shared__ int s_qpos[kRows];
-  __shared__ int s_kend;
-
-  const int G = H / KV;
-  const int n_rows = S * G;
-  const int row0 = blockIdx.x * kRows;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  if (tid < kRows) {
-    const int r = row0 + tid;
-    s_qpos[tid] = r < n_rows ? qpos[b * S + r / G] : -1;
-  }
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int lr = i / D, d = i - lr * D, r = row0 + lr;
-    float x = 0.f;
-    if (r < n_rows) {
-      const int h = kvh * G + r % G;
-      x = to_float(q[((size_t)(b * S + r / G) * H + h) * D + d]) * scale;
-    }
-    sq[i] = x;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int mx = -1;
-    for (int i = 0; i < kRows; ++i) mx = max(mx, s_qpos[i]);
-    s_kend = min(mx + 1, NW * bt);
-  }
-  __syncthreads();
-  const int kend = s_kend;
-
-  const int chunks_per_row = D / kVec;
-  auto stage = [&](int k0, int buf) {
-    T* dk = sk + buf * tile;
-    T* dv = sv + buf * tile;
-    for (int i = tid; i < kTileKeys * chunks_per_row; i += blockDim.x) {
-      const int j = i / chunks_per_row;
-      const int c = (i - j * chunks_per_row) * kVec;
-      const int pos = k0 + j;
-      T* tk = dk + j * ld + c;
-      T* tv = dv + j * ld + c;
-      if (pos < kend) {
-        const size_t page = (size_t)tables[b * NW + pos / bt];
-        const size_t off = ((page * bt + pos % bt) * KV + kvh) * D + c;
-        attn::cp_async16(tk, k + off);
-        attn::cp_async16(tv, v + off);
-      } else {
-        *reinterpret_cast<uint4*>(tk) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(tv) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    attn::cp_async_commit();
-  };
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NV];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[rr][i] = 0.f;
-  }
-
-  stage(0, 0);
-  int buf = 0;
-  for (int k0 = 0; k0 < kend; k0 += kTileKeys) {
-    if (k0 + kTileKeys < kend) {
-      stage(k0 + kTileKeys, buf ^ 1);
-      attn::cp_async_wait<1>();
-    } else {
-      attn::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* krow = sk + buf * tile + lane * ld;
-    const T* vbuf = sv + buf * tile;
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int lr = warp * kRowsPerWarp + rr;
-      const int qp = s_qpos[lr];
-      if (qp < k0) continue;
-      const float* qrow = sq + lr * D;
-      float s = 0.f;
-      for (int c = 0; c < D; c += kVec) {
-        float kf[kVec];
-        unpack(*reinterpret_cast<const uint4*>(krow + c), kf);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) s = fmaf(qrow[c + e], kf[e], s);
-      }
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const bool valid = kpos <= qp && kpos < kend;
-      s = valid ? s : kNegInf;
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
-      const float p = valid ? expf(s - safe_m) : 0.f;
-      const float alpha = m[rr] <= kNegInf / 2 ? 0.f : expf(m[rr] - safe_m);
-      m[rr] = m_new;
-      l[rr] = alpha * l[rr] + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) acc[rr][i] *= alpha;
-      for (int j = 0; j < kTileKeys; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-        const T* vrow = vbuf + j * ld;
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[rr][i] = fmaf(pj, to_float(vrow[d]), acc[rr][i]);
-        }
-      }
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-  attn::cp_async_wait<0>();
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = row0 + warp * kRowsPerWarp + rr;
-    if (r >= n_rows) continue;
-    const int h = kvh * G + r % G;
-    T* orow = out + ((size_t)(b * S + r / G) * H + h) * D;
-    const float denom = fmaxf(l[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) store(orow + d, acc[rr][i] / denom);
-    }
-  }
-}
-
-template <typename T, int NV>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* tables, const void* qpos, void* out, int B,
-                   int S, int H, int KV, int D, int bt, int NW, float scale,
-                   float softcap, cudaStream_t stream) {
-  const size_t ld = D + 16 / sizeof(T);
-  const size_t smem = kRows * D * sizeof(float)
-                      + 4 * kTileKeys * ld * sizeof(T);
-  auto fn = kernel<T, NV>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((S * (H / KV) + kRows - 1) / kRows, KV, B);
-  fn<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(qpos), static_cast<T*>(out), S, H, KV, D, bt,
-      NW, scale, softcap);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* tables, const void* qpos, void* out, int B,
-                     int S, int H, int KV, int D, int bt, int NW,
-                     float scale, float softcap, cudaStream_t stream) {
-  const int nv = (D + 31) / 32;
-#define TILE16_LAUNCH(NV)                                                 \
-  return launch<T, NV>(q, k, v, tables, qpos, out, B, S, H, KV, D, bt, NW, \
-                       scale, softcap, stream)
-  if (nv <= 1) TILE16_LAUNCH(1);
-  if (nv <= 2) TILE16_LAUNCH(2);
-  if (nv <= 4) TILE16_LAUNCH(4);
-  TILE16_LAUNCH(8);
-#undef TILE16_LAUNCH
-}
-
-}  // namespace tile16
-
 bool bad_shape(int B, int S, int H, int KV, int D, int bt, int NW) {
   return KV <= 0 || H % KV != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
          bt <= 0 || NW <= 0 || B > 65535 || KV > 65535;
@@ -1068,20 +848,3 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// The earlier design, for timing against: the same arguments as above
-// without the plan and the partials.
-extern "C" int paged_attention_tile16_launch(
-    const void* q, const void* k, const void* v, const void* tables,
-    const void* qpos, void* out, int B, int S, int H, int KV, int D, int bt,
-    int NW, float scale, float softcap, int dtype, void* stream) {
-  if (B <= 0 || S <= 0) return cudaSuccess;
-  if (bad_shape(B, S, H, KV, D, bt, NW)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tile16::dispatch<float>(q, k, v, tables, qpos, out, B, S, H, KV,
-                                   D, bt, NW, scale, softcap, st);
-  if (dtype == 1)
-    return tile16::dispatch<bf16>(q, k, v, tables, qpos, out, B, S, H, KV,
-                                  D, bt, NW, scale, softcap, st);
-  return cudaErrorInvalidValue;
-}

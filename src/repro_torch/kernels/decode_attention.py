@@ -19,8 +19,9 @@ cache's width counts the whole cache.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,11 +29,22 @@ from . import build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the key range is split over blocks until the grid holds about this many
-# blocks per SM, but no split walks fewer than _MIN_SPLIT_KEYS keys
-_BLOCKS_PER_SM = 4
-_MIN_SPLIT_KEYS = 256
+# no split walks fewer than _MIN_SPLIT_KEYS keys: below that a split's
+# fixed cost (its q loads, its merge) outweighs the parallelism it adds (on
+# an H100 80GB HBM3 at 700 W and gemma2-27b's widths, 128 ragged keys took
+# 0.0114 ms in one
+# split and 0.0136 in two; chip_smoke.py prints the plan and the time)
+_MIN_SPLIT_KEYS = 128
+# half-warps a block of the kernel (8 warps)
+_SUB_WARPS = 16
 _sm_counts: Dict[int, int] = {}
+_occupancy: Dict[Tuple[int, int, int, int, int], int] = {}
+# per (device, stream): the merge's arrival counters, which the kernel
+# leaves at 0
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+# per call signature: the launch's integer arguments, once its shapes,
+# dtypes, devices and options have passed _check_cuda_args
+_signatures: Dict[tuple, tuple] = {}
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -68,13 +80,17 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its ctypes signatures set once."""
     lib = build.load("decode_attention")
-    fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.decode_attention_occupancy.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lib.decode_attention_occupancy.restype = ctypes.c_int
+    lib.decode_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.decode_attention_launch.restype = ctypes.c_int
     return lib
 
 
@@ -116,18 +132,97 @@ def _check_cuda_args(q, k, v, valid_len, window) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _n_splits(dev: torch.device, B: int, KV: int, G: int,
-              n_keys: int) -> int:
-    """Blocks over the key range of one (row, KV head): enough for about
-    ``_BLOCKS_PER_SM`` blocks per SM in all, none shorter than
-    ``_MIN_SPLIT_KEYS`` keys."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    base = B * KV * -(-G // 8)      # blocks of one split: up to 8 heads each
-    want = -(-_BLOCKS_PER_SM * _sm_counts[idx] // base)
-    return max(1, min(want, -(-n_keys // _MIN_SPLIT_KEYS)))
+def _chunks_per_lane(D: int, itemsize: int) -> int:
+    """16-byte chunks of a row each lane of a half-warp owns: 1, 2 or 4."""
+    nbytes = D * itemsize
+    return 1 if nbytes <= 256 else 2 if nbytes <= 512 else 4
+
+
+def tile_keys(D: int, itemsize: int) -> int:
+    """Keys a stage of the kernel's ring holds: 16 KB of K and V rows, and
+    at least one key for each half-warp."""
+    return max(_SUB_WARPS, 32 // _chunks_per_lane(D, itemsize))
+
+
+def heads_per_block(G: int, D: int) -> int:
+    """Query heads of one KV head a block takes (the kernel's GB): the next
+    power of two of G, at most 8, at most 4 where D > 128."""
+    for gb in (1, 2, 4):
+        if G <= gb:
+            return gb
+    return 4 if D > 128 else 8
+
+
+def split_plan(B: int, KV: int, G: int, D: int, itemsize: int, n_keys: int,
+               blocks_per_sm: int, n_sm: int) -> Tuple[int, int]:
+    """(n_splits, keys_per_split) over a key range of ``n_keys``: as many
+    splits as one wave at ``blocks_per_sm`` has room for beside the B * KV *
+    row groups' blocks of one split, none shorter than ``_MIN_SPLIT_KEYS``
+    keys, each a whole number of the ring's tiles. One split where one
+    split alone fills the wave."""
+    tile = tile_keys(D, itemsize)
+    base = B * KV * -(-G // heads_per_block(G, D))
+    n = max(1, min(blocks_per_sm * n_sm // base,
+                   -(-n_keys // _MIN_SPLIT_KEYS)))
+    per = -(-n_keys // n)
+    per = -(-per // tile) * tile
+    return -(-n_keys // per), per
+
+
+def _blocks_per_sm(device: int, H: int, KV: int, D: int, code: int) -> int:
+    key = (device, H // KV, KV, D, code)
+    if key not in _occupancy:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _lib().decode_attention_occupancy(H, KV, D, code,
+                                                   ctypes.byref(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"decode attention occupancy query failed: "
+                               f"CUDA error {rc}, {n.value} blocks")
+        _occupancy[key] = n.value
+    return _occupancy[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, S: int, H: int, KV: int, D: int, window: int,
+          dtype: torch.dtype, device: int) -> Tuple[int, int]:
+    """The launch's split plan from shapes alone (``window`` < 0: none),
+    cached: it never reads ``valid_len`` back from the card."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    n_keys = S if window < 0 else max(min(S, window), 1)
+    occ = _blocks_per_sm(device, H, KV, D, _DTYPE_CODES[dtype])
+    return split_plan(B, KV, H // KV, D, dtype.itemsize, n_keys, occ,
+                      _sm_counts[device])
+
+
+def _counter_buffer(device: int, stream: int, n: int) -> torch.Tensor:
+    """The merge's arrival counters for calls on ``stream``: zeroed once,
+    and left at 0 by every launch."""
+    buf = _counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _counters[(device, stream)] = torch.zeros(
+            n, dtype=torch.int32, device=device)
+    return buf
+
+
+def _signature_args(q, k, v, valid_len, window, softcap, key) -> tuple:
+    """The checks and the plan of one call signature, done once."""
+    _check_cuda_args(q, k, v, valid_len, window)
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    device = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    n_splits, per = _plan(B, S, H, KV, D,
+                          -1 if window is None else int(window), q.dtype,
+                          device)
+    n_counters = B * KV * -(-(H // KV) // heads_per_block(H // KV, D))
+    ints = (B, S, H, KV, D, -1 if window is None else int(window), n_splits,
+            per, 1.0 / math.sqrt(D), float(softcap or 0.0),
+            _DTYPE_CODES[q.dtype])
+    _signatures[key] = (device, n_splits, n_counters, ints)
+    return _signatures[key]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -141,7 +236,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``decode_attention_plain``. CUDA tensors launch the
     kernel on the current stream (no synchronisation) and count one launch
     in ``decode_attention.launches``; whatever the kernel does not take
-    raises."""
+    raises. Shapes, dtypes, devices and options are checked, and the split
+    plan made, once per call signature; contiguity and alignment, which
+    depend on the tensors themselves, on every call."""
     if q.device.type == "cpu":
         for t in (k, v, valid_len):
             if t.device.type != "cpu":
@@ -151,36 +248,46 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    _check_cuda_args(q, k, v, valid_len, window)
-    B, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    n_keys = S if window is None else max(min(S, window), 1)
-    n_splits = _n_splits(q.device, B, KV, H // KV, n_keys)
-    keys_per_split = -(-n_keys // n_splits)
+    key = (q.shape, k.shape, v.shape, valid_len.shape, q.dtype, k.dtype,
+           v.dtype, valid_len.dtype, q.device, k.device, v.device,
+           valid_len.device, window, softcap)
+    args = _signatures.get(key)
+    if args is None:
+        args = _signature_args(q, k, v, valid_len, window, softcap, key)
+    for t in (q, k, v, valid_len):
+        if t.data_ptr() % 16 or not t.is_contiguous():
+            _check_cuda_args(q, k, v, valid_len, window)   # raises
+    device, n_splits, n_counters, ints = args
+    fn = _lib().decode_attention_launch
     out = torch.empty_like(q)
-    part_ml = part_acc = None
-    if n_splits > 1:
-        # per-split softmax state (m, l) and unnormalised accumulators,
-        # merged by the kernel's second pass
-        part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32,
-                               device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _lib().decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(),
-            0 if part_ml is None else part_ml.data_ptr(),
-            0 if part_acc is None else part_acc.data_ptr(),
-            B, S, H, KV, D, -1 if window is None else int(window),
-            n_splits, keys_per_split,
-            1.0 / math.sqrt(D), float(softcap or 0.0), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    if device == torch.cuda.current_device():
+        rc = _launch(fn, q, k, v, valid_len, out, device, n_splits,
+                     n_counters, ints)
+    else:
+        with torch.cuda.device(device):
+            rc = _launch(fn, q, k, v, valid_len, out, device, n_splits,
+                         n_counters, ints)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "
                            f"error {rc}")
     decode_attention.launches += 1
     return out
+
+
+def _launch(fn, q, k, v, valid_len, out, device, n_splits, n_counters,
+            ints) -> int:
+    """One launch on the current device's current stream; with splits,
+    their fp32 partials (torch.empty on that stream) and its counters."""
+    stream = torch.cuda.current_stream().cuda_stream
+    part = counters = None
+    if n_splits > 1:
+        B, H, D = q.shape
+        part = torch.empty(B * H * n_splits * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counter_buffer(device, stream, n_counters)
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
+              out.data_ptr(), 0 if part is None else part.data_ptr(),
+              0 if counters is None else counters.data_ptr(), *ints, stream)
 
 
 decode_attention.launches = 0

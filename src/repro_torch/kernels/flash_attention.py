@@ -165,7 +165,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -204,8 +204,9 @@ def _check_cuda_args(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal, window, softcap, design):
-    """K3 in ``design`` on the current stream: (out, lse)."""
+def _launch(q, k, v, causal, window, softcap):
+    """K3 on the current stream, in ``flash_design(q.dtype)``: (out,
+    lse)."""
     _check_cuda_args(q, k, v, window)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
@@ -216,7 +217,6 @@ def _launch(q, k, v, causal, window, softcap, design):
             lse.data_ptr(), B, S, H, k.shape[2], D, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(D),
             float(softcap or 0.0), _DTYPE_CODES[q.dtype],
-            int(design == "simt"),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
@@ -240,19 +240,9 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    res = _launch(q, k, v, causal, window, softcap, flash_design(q.dtype))
+    res = _launch(q, k, v, causal, window, softcap)
     flash_attention.launches += 1
     return res
-
-
-def flash_attention_simt(q, k, v, *, causal: bool = True,
-                         window: Optional[int] = None,
-                         softcap: Optional[float] = None):
-    """(out, lse) of the kernel's SIMT design on CUDA tensors of either
-    dtype: for bf16 the kernel's earlier design, the yardstick
-    ``chip_smoke.py`` times the wgmma design against. No path of the
-    port calls it, and it counts no launch."""
-    return _launch(q, k, v, causal, window, softcap, "simt")
 
 
 class _FlashAttention(torch.autograd.Function):

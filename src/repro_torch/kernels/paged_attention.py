@@ -135,11 +135,6 @@ def _lib() -> ctypes.CDLL:
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.paged_attention_tile16_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     return lib
 
 
@@ -233,29 +228,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_decode_attention.launches += 1
-    return out
-
-
-def paged_attention_tile16(q, k_pages, v_pages, tables, qpos, *,
-                           softcap=None) -> torch.Tensor:
-    """The kernel's earlier design (one block per 16 rows, KV head and b;
-    32-key tiles walked serially on the SIMT units) on CUDA tensors:
-    the yardstick ``chip_smoke.py`` times the current design against. No
-    path of the port calls it, and it counts no launch."""
-    _check_cuda_args(q, k_pages, v_pages, tables, qpos)
-    B, S, H, D = q.shape
-    bt, KV = k_pages.shape[1], k_pages.shape[2]
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _lib().paged_attention_tile16_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
-            B, S, H, KV, D, bt, tables.shape[1],
-            1.0 / math.sqrt(D), float(softcap or 0.0), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
-                           f"error {rc}")
     return out
 
 

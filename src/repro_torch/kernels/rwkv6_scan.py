@@ -31,6 +31,7 @@ overflows there.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -166,12 +167,17 @@ def rwkv6_wkv_chunked(r, k, v, logw, u, *, chunk: int = 16
     return out.reshape(B, nc * C, H, N)[:, :T], S_last
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its ctypes signatures set once."""
     lib = build.load("rwkv6_scan")
     fn = lib.rwkv6_wkv_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    size = lib.rwkv6_wkv_scratch_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
     return lib
 
 
@@ -201,22 +207,28 @@ def _check_cuda_args(r, k, v, logw, u, chunk) -> None:
     if u.shape != (H, N):
         raise ValueError(f"u must be (H, N) = {(H, N)}, got "
                          f"{tuple(u.shape)}")
-    if T < 1 or N > 256 or B * H > 2 ** 31 - 1:
-        raise ValueError(f"T >= 1, N <= 256 and B * H < 2^31 expected, got "
-                         f"B={B}, T={T}, H={H}, N={N}")
+    if T < 1 or N > 256 or B * H * -(-T // min(chunk, T)) > 2 ** 31 - 1:
+        raise ValueError(f"T >= 1, N <= 256 and B * H * chunks < 2^31 "
+                         f"expected, got B={B}, T={T}, H={H}, N={N}")
 
 
 def _launch(r, k, v, logw, u, chunk):
     """K4 on the current stream: (out, S_last). Counts one launch."""
     _check_cuda_args(r, k, v, logw, u, chunk)
     B, T, H, N = r.shape
+    C = min(chunk, T)
     out = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     s_last = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    # the chunk pass's rows for the state pass: r e^lce and k e^(lc_last -
+    # lc) of every token, e^lc_last of every chunk, fp32
+    lib = _lib()
+    scratch = torch.empty(lib.rwkv6_wkv_scratch_floats(B, T, H, N, C),
+                          dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
-        rc = _lib().rwkv6_wkv_launch(
+        rc = lib.rwkv6_wkv_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), out.data_ptr(), s_last.data_ptr(), B, T, H, N,
-            min(chunk, T), _DTYPE_CODES[r.dtype],
+            u.data_ptr(), out.data_ptr(), s_last.data_ptr(),
+            scratch.data_ptr(), B, T, H, N, C, _DTYPE_CODES[r.dtype],
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"RWKV6 WKV kernel launch failed: CUDA error "

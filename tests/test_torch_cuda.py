@@ -179,7 +179,10 @@ def test_kernel_merges_many_splits(dev):
 # path's shapes (ragged at S=128, the wrapped L window at S=4096, split
 # over blocks), split key ranges under a window and past the cache's
 # width, and odd sizes: qwen2 smoke's G=7 heads of D=8, D=256, G=16 (two
-# row groups a KV head), MQA with G=8
+# row groups a KV head), MQA with G=8; then the gemma2 S=4096 shape with a
+# window of the cache's width and valid lengths past S, with every row
+# seeing nothing, and with every row at S, and G=8 filling the 8-head block
+# over a split cache
 DECODE_CASES = [
     (2, 128, 4, 2, 64, None, None, [128, 121]),
     (1, 200, 8, 1, 64, None, 50.0, [200]),
@@ -194,6 +197,11 @@ DECODE_CASES = [
     (2, 300, 4, 2, 256, None, None, [300, 271]),
     (2, 64, 32, 2, 64, 16, None, [64, 10]),
     (2, 512, 8, 1, 128, None, 50.0, [512, 77]),
+    (8, 4096, 32, 16, 128, 4096, 50.0,
+     [4500, 5000, 4097, 8191, 4096, 6000, 4200, 9000]),
+    (8, 4096, 32, 16, 128, None, 50.0, [0] * 8),
+    (8, 4096, 32, 16, 128, None, 50.0, [4096] * 8),
+    (4, 2048, 32, 4, 128, None, 30.0, [2048, 1000, 1, 0]),
 ]
 
 
@@ -432,11 +440,13 @@ def test_rglru_wrapper_raises_on_what_kernel_does_not_take(dev):
 # (B, T, H, N, chunk): the reference test's cases (tests/test_kernels.py:
 # 111-112) at the kernel's chunk of at most 16, the smoke model's heads
 # (N=4), ragged T, short chunks, N not a multiple of 4 or of the 32-column
-# tile, the training cell's heads (N=160) and the largest N (256)
+# tile, the training cell's heads (N=160) and the largest N (256); then
+# N=160 over 65 chunks with a ragged T, and N=100, no multiple of the
+# state pass's 32-column slice
 RWKV_CASES = [(1, 64, 2, 32, 16), (2, 96, 4, 64, 16), (1, 50, 2, 16, 16),
               (1, 128, 2, 128, 16), (2, 40, 16, 4, 16), (1, 37, 3, 20, 5),
               (2, 9, 2, 33, 16), (1, 100, 2, 160, 16), (1, 48, 1, 256, 16),
-              (1, 1, 2, 8, 16)]
+              (1, 1, 2, 8, 16), (1, 1030, 2, 160, 16), (2, 77, 3, 100, 16)]
 
 
 def _rwkv_inputs(B, T, H, N, dtype, dev, seed, logw=None):

@@ -1,10 +1,14 @@
-"""What the attention kernels' wrappers decide on the host, checked on the
-CPU: paged attention's split plan (it covers the block table's key range
-exactly and depends on shapes alone), the split-and-merge algebra its
-kernel runs (each split's softmax state from the plain version's scores,
-merged as the kernel's merge pass does, equals the plain version), the
-dtype and shape dispatch of both attention wrappers, and the kernel build's
-hash over the sources and the headers they include."""
+"""What the kernels' wrappers decide on the host, checked on the CPU:
+paged attention's and flash-decoding's split plans (each covers the key
+range exactly, depends on shapes alone and, for flash-decoding, plans no
+more than one wave of blocks), the split-and-merge algebra both kernels
+run (each split's softmax state from the plain version's scores, merged as
+the kernel merges them, equals the plain version), the RWKV6 WKV kernel's
+two passes (the per-chunk pass, then the state pass over column slices,
+give the plain version's output and last state), the dtype and shape
+dispatch of the attention wrappers, and the kernel build's hash over the
+sources and the headers they include."""
+import importlib
 import inspect
 import math
 import shutil
@@ -17,6 +21,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_plain  # noqa: E402
+
+# the module, which the package's function of the same name shadows
+da_mod = importlib.import_module("repro_torch.kernels.decode_attention")
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 
 DESIGNS = ("simt", "mma16", "mma64")
@@ -200,6 +208,238 @@ def test_split_merge_algebra_with_many_empty_splits():
     got = _split_and_merge(*args, 24, 1)
     want = pa.paged_attention_plain(*args)
     assert (got - want).abs().max().item() <= 1e-6
+
+
+# flash-decoding (B, S, H, KV, D, window, itemsize, blocks_per_sm, n_sm):
+# the gather serve cell's S=128 and S=4096 in bf16 at 3 and 4 blocks an
+# SM, a window of the cache's width, a narrow window, f32 at D=256, G=16
+# in two row groups, a batch that fills the wave alone, one row of one
+# head, and a small card
+DECODE_PLAN_SHAPES = [
+    (8, 128, 32, 16, 128, None, 2, 4, 132),
+    (8, 4096, 32, 16, 128, None, 2, 4, 132),
+    (8, 4096, 32, 16, 128, None, 2, 3, 132),
+    (8, 4096, 32, 16, 128, 4096, 2, 4, 132),
+    (3, 1000, 8, 4, 64, 300, 4, 4, 132),
+    (2, 300, 4, 2, 256, None, 4, 2, 132),
+    (2, 64, 32, 2, 64, 16, 2, 4, 132),
+    (256, 2048, 8, 8, 128, None, 2, 4, 132),
+    (1, 1, 1, 1, 8, None, 4, 4, 132),
+    (2, 700, 4, 2, 64, None, 2, 3, 20),
+]
+
+
+def _decode_ranges(vl, S, window, n, per):
+    """The key ranges the kernel's n splits of ``per`` keys walk for a row
+    of valid length ``vl``: [lo, end) each, empty ones included."""
+    start = max(0, vl - window) if window is not None else 0
+    hi = min(vl, S)
+    return [(start + j * per, min(hi, start + (j + 1) * per))
+            for j in range(n)]
+
+
+def _decode_plan(shape):
+    B, S, H, KV, D, window, isz, occ, n_sm = shape
+    n_keys = S if window is None else max(min(S, window), 1)
+    return da_mod.split_plan(B, KV, H // KV, D, isz, n_keys, occ, n_sm)
+
+
+@pytest.mark.parametrize("shape", DECODE_PLAN_SHAPES)
+def test_decode_split_plan_covers_visible_keys_exactly(shape):
+    """For every valid length, the splits' ranges are disjoint, in order,
+    and their union is the row's visible keys; each split is a whole
+    number of the ring's tiles and none is needless."""
+    B, S, H, KV, D, window, isz, occ, n_sm = shape
+    n, per = _decode_plan(shape)
+    n_keys = S if window is None else max(min(S, window), 1)
+    assert n >= 1 and per % da_mod.tile_keys(D, isz) == 0
+    assert n * per >= n_keys > (n - 1) * per
+    for vl in sorted({0, 1, S // 2, S - 1, S, S + 1, S + 404, 2 * S + 7}):
+        start = max(0, vl - window) if window is not None else 0
+        want = set(range(start, min(vl, S)))
+        got = []
+        for lo, end in _decode_ranges(vl, S, window, n, per):
+            got.extend(range(lo, end))
+        assert got == sorted(want), (vl, n, per)
+
+
+@pytest.mark.parametrize("shape", DECODE_PLAN_SHAPES)
+def test_decode_split_plan_fills_at_most_one_wave(shape):
+    """Splits never plan more blocks than one wave holds at the given
+    occupancy; only a single split may exceed it, when its blocks alone
+    do."""
+    B, S, H, KV, D, window, isz, occ, n_sm = shape
+    n, _ = _decode_plan(shape)
+    G = H // KV
+    base = B * KV * -(-G // da_mod.heads_per_block(G, D))
+    assert n * base <= max(occ * n_sm, base)
+    if n > 1:
+        assert n * base <= occ * n_sm
+
+
+def test_decode_plan_depends_on_shapes_alone(monkeypatch):
+    """The cached plan takes integers and a dtype, never a tensor, so the
+    wrapper never reads valid_len back from the card; equal shapes give
+    the one cached plan, whatever the valid lengths."""
+    params = inspect.signature(da_mod._plan.__wrapped__).parameters
+    assert {p.annotation for p in params.values()} <= {"int", "torch.dtype"}
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(da_mod, "_blocks_per_sm",
+                        lambda device, H, KV, D, code: 4)
+    monkeypatch.setattr(da_mod, "_sm_counts", {})
+    da_mod._plan.cache_clear()
+    try:
+        for dtype, isz in ((torch.bfloat16, 2), (torch.float32, 4)):
+            got = da_mod._plan(8, 4096, 32, 16, 128, -1, dtype, 0)
+            assert got == da_mod.split_plan(8, 16, 2, 128, isz, 4096, 4, 132)
+            assert da_mod._plan(8, 4096, 32, 16, 128, -1, dtype, 0) == got
+        assert da_mod._plan(8, 4096, 32, 16, 128, 300, torch.bfloat16,
+                            0) == da_mod.split_plan(8, 16, 2, 128, 2, 300,
+                                                    4, 132)
+        assert da_mod._plan.cache_info().hits == 2
+    finally:
+        da_mod._plan.cache_clear()
+
+
+def _decode_split_and_merge(q, k, v, valid, window, softcap, n, per):
+    """Flash-decoding the kernel's way: each of n splits gives its softmax
+    state (m, l, acc) over its range of the row's visible keys (m =
+    NEG_INF, l = 0, acc = 0 where it sees none), and the merge weighs
+    state j by exp(m_j - max m), 0 for a state that saw no key, and
+    divides by the weighted sum of l (at least 1e-30)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(S)
+    states = []
+    for j in range(n):
+        inside = torch.zeros((B, S), dtype=torch.bool)
+        for b in range(B):
+            lo, end = _decode_ranges(int(valid[b]), S, window, n, per)[j]
+            inside[b] = (kpos >= lo) & (kpos < end)
+        mask = inside[:, None, None, :]
+        sj = torch.where(mask, s, da_mod.NEG_INF)
+        m = sj.amax(dim=-1)
+        safe = torch.where(m <= da_mod.NEG_INF / 2, 0.0, m)
+        p = torch.where(mask, torch.exp(sj - safe[..., None]), 0.0)
+        states.append((m, p.sum(-1), torch.einsum("bhgs,bshd->bhgd", p, v)))
+    mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    safe = torch.where(mx <= da_mod.NEG_INF / 2, 0.0, mx)
+    lsum = torch.zeros_like(mx)
+    acc = torch.zeros_like(states[0][2])
+    for m, l_, a in states:
+        w = torch.where(m <= da_mod.NEG_INF / 2, 0.0, torch.exp(m - safe))
+        lsum = lsum + w * l_
+        acc = acc + w[..., None] * a
+    return (acc / lsum.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+
+
+# (B, S, H, KV, D, window, softcap, valid, n_splits): the serve cell's
+# ragged S=128 at its plan, the wrapped window (valid past S) with and
+# without a window, rows that see nothing, G=8, and one tile a split, so
+# that most splits of a short row are empty
+DECODE_MERGE_CASES = [
+    (8, 128, 32, 16, 32, None, 50.0, [80, 128, 1, 96, 33, 64, 127, 5], 2),
+    (4, 256, 4, 2, 16, 200, None, [300, 256, 90, 0], 4),
+    (3, 256, 4, 2, 16, None, 30.0, [400, 256, 0], 4),
+    (2, 96, 16, 2, 8, None, None, [96, 40], 3),
+    (3, 160, 4, 1, 16, 64, None, [160, 5, 0], 5),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_MERGE_CASES)
+def test_decode_split_merge_algebra_matches_plain(case):
+    """The splits' merged states equal the plain version within 1e-6 in
+    f32, empty splits and rows that see no key (0) included; the plan's
+    tile-rounded split length, and splits of one 8-key tile."""
+    B, S, H, KV, D, window, softcap, valid, n_splits = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in [(B, H, D), (B, S, KV, D), (B, S, KV, D)])
+    valid = torch.tensor(valid, dtype=torch.int32)
+    n_keys = S if window is None else max(min(S, window), 1)
+    want = da_mod.decode_attention_plain(q, k, v, valid, window, softcap)
+    for n, per in ((n_splits, -(-n_keys // n_splits)),
+                   (-(-n_keys // 8), 8)):
+        got = _decode_split_and_merge(q, k, v, valid, window, softcap, n,
+                                      per)
+        assert (got - want).abs().max().item() <= 1e-6
+        for b, vl in enumerate(valid.tolist()):
+            if vl == 0:
+                assert not got[b].any()
+
+
+def _wkv_two_pass(r, k, v, logw, u, chunk, cols):
+    """The RWKV6 WKV the kernel's way, in plain PyTorch: the chunk pass
+    takes, for every chunk at once, the factored-decay scores (the bonus on
+    the diagonal) and the intra-chunk output, and the rows r e^lce,
+    k e^(lc_last - lc) and e^lc_last; then the state pass carries each
+    slice of ``cols`` state columns through the chunks in order, adding
+    (r e^lce) S to the output before S <- e^lc_last S + k_out^T v."""
+    B, T, H, N = r.shape
+    C = min(chunk, T)
+    nc = -(-T // C)
+    pad = nc * C - T
+    rf, kf, vf, lw = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                      .reshape(B, nc, C, H, N) for t in (r, k, v, logw))
+    lc = torch.cumsum(lw, dim=2)
+    lce = lc - lw
+    a0 = lc[:, :, :1]
+    scores = torch.einsum("bcthn,bcjhn->bchtj", rf * torch.exp(lce - a0),
+                          kf * torch.exp(a0 - lc))
+    strict = torch.ones((C, C), dtype=torch.bool).tril(-1)
+    scores = torch.where(strict, scores, 0.0)
+    bonus = torch.einsum("bcthn,bcthn->bcht", rf, u.float() * kf)
+    scores = scores + torch.diag_embed(bonus)
+    out = torch.einsum("bchtj,bcjhn->bcthn", scores, vf)
+    ra = rf * torch.exp(lce)
+    last = lc[:, :, -1:]
+    ko = kf * torch.exp(last - lc)
+    dec = torch.exp(last[:, :, 0])                      # (B, nc, H, N)
+    s_last = torch.zeros((B, H, N, N))
+    for m0 in range(0, N, cols):
+        m1 = min(N, m0 + cols)
+        S = torch.zeros((B, H, N, m1 - m0))
+        for c in range(nc):
+            out[:, c, :, :, m0:m1] += torch.einsum("bthn,bhnm->bthm",
+                                                   ra[:, c], S)
+            S = dec[:, c][..., None] * S + torch.einsum(
+                "bthn,bthm->bhnm", ko[:, c], vf[:, c, :, :, m0:m1])
+        s_last[..., m0:m1] = S
+    return out.reshape(B, nc * C, H, N)[:, :T], s_last
+
+
+# (B, T, H, N, chunk): ragged T at the kernel's chunk of 16 with N not a
+# multiple of the 32-column slice, the cell's N=160 over 5 chunks, a short
+# chunk, and T below one chunk
+WKV_TWO_PASS_CASES = [(2, 37, 2, 20, 16), (1, 80, 2, 160, 16),
+                      (2, 23, 3, 9, 5), (1, 7, 2, 33, 16)]
+
+
+@pytest.mark.parametrize("case", WKV_TWO_PASS_CASES)
+def test_wkv_two_pass_decomposition_matches_plain(case):
+    """The chunk pass, then the state pass over 32-column slices (the
+    kernel's), give the plain version's output and last state within 1e-5
+    of their largest magnitude (both fp32)."""
+    B, T, H, N, chunk = case
+    rng = np.random.default_rng(sum(case))
+    r, k, v = (torch.from_numpy(0.5 * rng.standard_normal((B, T, H, N))
+                                .astype(np.float32)) for _ in range(3))
+    logw = torch.from_numpy(np.clip(-np.exp(rng.standard_normal(
+        (B, T, H, N))), -5.0, -1e-6).astype(np.float32))
+    u = torch.from_numpy(0.5 * rng.standard_normal((H, N)).astype(
+        np.float32))
+    got, got_s = _wkv_two_pass(r, k, v, logw, u, chunk, 32)
+    want, want_s = rwkv6_wkv_plain(r, k, v, logw, u, chunk=chunk)
+    for g, w in ((got, want), (got_s, want_s)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
 
 
 def _copy_csrc(tmp_path, monkeypatch):
