@@ -21,7 +21,8 @@ exits non-zero:
              (forward and, through its autograd Function, backward, in
              f32 and bf16; recurrentgemma's L layer and gemma2's G layer
              at S=4096), K5 the RG-LRU
-             scan (forward and reverse mode at B=2, T=4096, W=4096), K4
+             scan (forward, reverse and gradients, bit-equal, on ragged
+             cases; timed at B=1 and B=2, T=4096, W=4096), K4
              the RWKV6 WKV
              (f32 on the reference test's cases and at logw = -5, then
              bf16 r, k, v at rwkv6-3b's training shape B=2, T=4096,
@@ -92,9 +93,10 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_design  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
-# the module, which the package's function of the same name shadows
+# the modules, which the package's functions of the same names shadow
 decode_attention_mod = sys.modules[  # noqa: E402
     "repro_torch.kernels.decode_attention"]
+rglru_scan_mod = sys.modules["repro_torch.kernels.rglru_scan"]  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  decode_attention_plain, flash_attention,
                                  flash_attention_bwd_plain,
@@ -650,14 +652,37 @@ def flash_kernel_phase(dev) -> dict:
             "gemma2_G": timings["gemma2_G"]}
 
 
+# (B, T, W) of K5's checks: the reference test's cases, W past a multiple
+# of the stripe (100, 4100) on 16- and 32-channel stripes, W % 4 != 0 (66,
+# 2110: 4-byte copies), T=1 and T=2, then the timed shapes (T longer than
+# the ring): one 4096-token sequence and the training cell
+RGLRU_CASES = [(1, 64, 128), (2, 200, 256), (3, 33, 128), (2, 7, 100),
+               (1, 33, 4100), (2, 9, 4100), (2, 5, 66), (2, 17, 2110),
+               (1, 1, 66), (3, 2, 100), (1, 4096, 4096), (2, 4096, 4096)]
+
+
+def rglru_plan_sweep(B, W):
+    """Every stripe width and a range of ring depths the kernel takes, to
+    time beside the plan's choice (forward and reverse ms a pair)."""
+    return [rglru_scan_mod.RGLRUPlan(c, rglru_scan_mod._STAGE_FLOATS // c,
+                                     st, B * -(-W // c))
+            for c in (16, 32) for st in (2, 3, 4, 5, 6, 8)]
+
+
 def rglru_kernel_phase(dev) -> dict:
-    """K5 against its plain version, forward and reverse mode: small
-    ragged cases, then the training shape B=2, T=4096, W=4096 (fp32),
-    timed. Kernel and plain round alike, so they should agree exactly."""
+    """K5 against its plain version, forward and reverse mode and, on the
+    small cases, the gradients through its autograd Function: kernel and
+    plain round alike, so every output must be bit-equal (torch.equal).
+    Then B=1 and the training shape B=2 at T=4096, W=4096 (fp32), timed
+    with the plan, host ms a call, and a ``torch.add`` over the forward's
+    bytes (a and b read, y written) as what an elementwise pass gets;
+    beside them the kernel under other plans (``rglru_plan_sweep``),
+    launched directly and so not counted."""
     errs = {}
     g = torch.Generator(device=dev).manual_seed(0)
-    for B, T, W in ((1, 64, 128), (2, 200, 256), (3, 33, 128), (2, 7, 100),
-                    (2, 4096, 4096)):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = {}
+    for B, T, W in RGLRU_CASES:
         a = torch.sigmoid(torch.randn((B, T, W), generator=g, device=dev))
         b = torch.randn((B, T, W), generator=g, device=dev)
         dy = torch.randn((B, T, W), generator=g, device=dev)
@@ -669,24 +694,49 @@ def rglru_kernel_phase(dev) -> dict:
         err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
         rev_err = max((da - wda).abs().max().item(),
                       (db - wdb).abs().max().item())
-        assert err <= 1e-6 * wy.abs().max().item(), (B, T, W, err)
-        assert rev_err <= 1e-6 * max(wda.abs().max().item(),
-                                     wdb.abs().max().item()), rev_err
+        assert torch.equal(y, wy) and torch.equal(h, wh), (B, T, W, err)
+        assert torch.equal(da, wda) and torch.equal(db, wdb), (B, T, W,
+                                                               rev_err)
+        if T < 4096:
+            leaves = [a.clone().requires_grad_(True),
+                      b.clone().requires_grad_(True)]
+            grads = torch.autograd.grad(rglru_scan(*leaves)[0], leaves, dy)
+            assert torch.equal(grads[0], wda) and torch.equal(grads[1],
+                                                              wdb), (B, T, W)
         errs[f"B{B}T{T}W{W}"] = [err, rev_err]
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    t = {"kernel_ms": time_ms(lambda: rglru_scan(a, b), 20, flush),
-         "plain_ms": time_ms(lambda: rglru_scan_plain(a, b), 2, flush),
-         "reverse_kernel_ms": time_ms(lambda: rglru_scan_reverse(a, y, dy),
-                                      20, flush),
-         "reverse_plain_ms": time_ms(lambda: rglru_scan_bwd_plain(a, y, dy),
-                                     2, flush),
-         "library_ms": None, "library": "none: no single PyTorch call "
-         "computes a linear recurrence",
-         # bytes bound both ways, each array moved once: a, b read and y
-         # written; reverse: a, dy, y read and da, db written
-         "bound_ms": 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes",
-         "reverse_bound_ms": 5 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+        if T < 4096:
+            continue
+        fwd_plan = rglru_scan_mod._plan(B, T, W, False, a.device.index)
+        rev_plan = rglru_scan_mod._plan(B, T, W, True, a.device.index)
+        out = torch.empty_like(a)
+        sweep = {}
+        for plan in rglru_plan_sweep(B, W):
+            sweep[f"{plan.channels}x{plan.stages}"] = [
+                time_ms(lambda: rglru_scan_mod._launch(
+                    a, b, out, None, None, a.device.index, plan), 10, flush),
+                time_ms(lambda: rglru_scan_mod._launch(
+                    a, dy, y, da, db, a.device.index, plan), 10, flush)]
+        timed[f"B{B}"] = {
+            "kernel_ms": time_ms(lambda: rglru_scan(a, b), 20, flush),
+            "plain_ms": time_ms(lambda: rglru_scan_plain(a, b), 2, flush),
+            "reverse_kernel_ms": time_ms(
+                lambda: rglru_scan_reverse(a, y, dy), 20, flush),
+            "reverse_plain_ms": time_ms(
+                lambda: rglru_scan_bwd_plain(a, y, dy), 2, flush),
+            "kernel_host_ms": host_ms(lambda: rglru_scan(a, b), 200),
+            "add_same_bytes_ms": time_ms(lambda: torch.add(a, b, out=out),
+                                         20, flush),
+            "plan": fwd_plan._asdict(),
+            "reverse_plan": rev_plan._asdict(),
+            "plan_sweep_ms": sweep,
+            # bytes bound both ways, each array moved once: a, b read and
+            # y written; reverse: a, dy, y read and da, db written
+            "bound_ms": 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            "reverse_bound_ms": 5 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+        del a, b, dy, y, h, wy, wh, da, db, wda, wdb, out
+    t = {**timed["B2"], "library_ms": None, "library": "none: no single "
+         "PyTorch call computes a linear recurrence", "bound_by": "bytes",
+         "B1": timed["B1"]}
     emit("kernel", name="rglru_scan", dtype="float32",
          shape={"B": 2, "T": 4096, "W": 4096}, max_abs_err=errs, **t)
     return {**t, "max_abs_err": max(max(e) for e in errs.values())}
@@ -1680,7 +1730,13 @@ def main() -> int:
                     launches_forward=train_launches["rglru_scan"],
                     launches_reverse=train_launches["rglru_scan_reverse"],
                     reverse_ms=k5["reverse_kernel_ms"],
-                    reverse_plain_ms=k5["reverse_plain_ms"])
+                    reverse_plain_ms=k5["reverse_plain_ms"],
+                    reverse_bound_ms=k5["reverse_bound_ms"],
+                    plan=k5["plan"], reverse_plan=k5["reverse_plan"],
+                    kernel_host_ms=k5["kernel_host_ms"],
+                    B1={key: k5["B1"][key] for key in (
+                        "kernel_ms", "reverse_kernel_ms", "bound_ms",
+                        "reverse_bound_ms", "plan", "reverse_plan")})
     k4_entry = kernel_entry("rwkv6_scan",
                             "src/repro/kernels/rwkv6_scan.py:27",
                             k4_launches["rwkv6_wkv"], k4)

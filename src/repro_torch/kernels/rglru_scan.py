@@ -12,6 +12,9 @@ elementwise over the width W; the port of ``src/repro/kernels/rglru_scan.py``
 * ``rglru_scan_bwd_plain`` — the adjoint recurrence
   ``c_t = g_t + a_{t+1} * c_{t+1}``, with ``db_t = c_t`` and
   ``da_t = c_t * h_{t-1}``, over the saved outputs.
+* ``rglru_plan`` — the kernel's launch plan (stripe width, steps a stage,
+  ring depth, blocks) from the shapes and the card's SM count; the wrapper
+  caches it per device and shape, and checks each call signature once.
 
 Kernel and plain versions take every product and sum in the same order,
 each rounded on its own (no fused multiply-add), so on the card they agree
@@ -20,7 +23,8 @@ bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -53,12 +57,47 @@ def rglru_scan_bwd_plain(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
     return torch.stack(da, dim=1), torch.stack(db, dim=1)
 
 
+# floats of one array a stage of the kernel's ring holds (csrc kStageFloats)
+_STAGE_FLOATS = 512
+# the ring's depth for each mode (the kernel takes 2 to 8): the fastest at
+# B=2 and B=1, T=4096, W=4096 on an H100 80GB HBM3 at 700 W, where the
+# reverse mode (three reads and two writes a step) ran best with 2 stages
+# in flight and the forward (two reads, one write) with 5; chip_smoke.py's
+# K5 line prints the plan beside the times of the others
+_STAGES = {False: 6, True: 3}
+_sm_counts: Dict[int, int] = {}
+# per call signature: (device, plan), once its shapes, dtypes and devices
+# have passed _check_cuda_args
+_signatures: Dict[tuple, Tuple[int, "RGLRUPlan"]] = {}
+
+
+class RGLRUPlan(NamedTuple):
+    channels: int   # the stripe a block walks: neighbouring channels of a row
+    steps: int      # steps of the stripe a stage of the ring holds
+    stages: int     # stages of the ring
+    blocks: int     # blocks of the launch: B * ceil(W / channels)
+
+
+def rglru_plan(B: int, T: int, W: int, sm_count: int,
+               reverse: bool = False) -> RGLRUPlan:
+    """The kernel's launch plan from shapes alone: stripes of 32 channels
+    (128-byte rows) where they give every SM a block, else of 16; each
+    stage holds ``_STAGE_FLOATS`` floats of every input (16 steps of 32
+    channels or 32 of 16), and the ring is ``_STAGES[reverse]`` stages
+    deep, or one more than the walk's stages where T is short."""
+    channels = 32 if B * -(-W // 32) >= sm_count else 16
+    steps = _STAGE_FLOATS // channels
+    stages = max(2, min(_STAGES[reverse], -(-T // steps) + 1))
+    return RGLRUPlan(channels, steps, stages, B * -(-W // channels))
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its ctypes signature set once."""
     lib = build.load("rglru_scan")
-    fn = lib.rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.rglru_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rglru_scan_launch.restype = ctypes.c_int
     return lib
 
 
@@ -94,16 +133,49 @@ def _device(*ts) -> str:
                      f"one device; got {sorted(kinds)}")
 
 
-def _launch(a, u, y, da, db, reverse: bool) -> None:
-    """K5 on the current stream. Forward: reads a and u = b, writes y.
-    Reverse: reads a, u = dL/dy and y, writes da and db."""
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, T: int, W: int, reverse: bool, device: int) -> RGLRUPlan:
+    """``rglru_plan`` on the device's SM count (asked once a device),
+    cached: it never reads a tensor."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return rglru_plan(B, T, W, _sm_counts[device], reverse)
+
+
+def _signature(**named) -> Tuple[int, RGLRUPlan]:
+    """(device, plan) of the call, forward with two inputs and reverse
+    with three: the checks and the plan once per call signature;
+    contiguity, which depends on the tensors themselves, on every call."""
+    key = tuple((t.shape, t.dtype, t.device) for t in named.values())
+    sig = _signatures.get(key)
+    if sig is None:
+        _check_cuda_args(**named)
+        first = next(iter(named.values()))
+        device = first.device.index
+        sig = _signatures[key] = (device, _plan(*first.shape,
+                                                len(named) == 3, device))
+    for t in named.values():
+        if not t.is_contiguous():
+            _check_cuda_args(**named)   # raises
+    return sig
+
+
+def _launch(a, u, y, da, db, device: int, plan: RGLRUPlan) -> None:
+    """K5 on the device's current stream. Forward (``da`` None): reads a
+    and u = b, writes y. Reverse: reads a, u = dL/dy and y, writes da and
+    db."""
     B, T, W = a.shape
-    with torch.cuda.device(a.device):
-        rc = _lib().rglru_scan_launch(
-            a.data_ptr(), u.data_ptr(), y.data_ptr(),
+    args = (a.data_ptr(), u.data_ptr(), y.data_ptr(),
             0 if da is None else da.data_ptr(),
-            0 if db is None else db.data_ptr(), B, T, W, int(reverse),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            0 if db is None else db.data_ptr(), B, T, W, int(da is not None),
+            plan.channels, plan.stages)
+    fn = _lib().rglru_scan_launch
+    if device == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"RG-LRU scan kernel launch failed: CUDA error "
                            f"{rc}")
@@ -114,9 +186,9 @@ def rglru_scan_forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     in ``rglru_scan.launches``), the plain version on CPU tensors."""
     if _device(a, b) == "cpu":
         return rglru_scan_plain(a, b)[0]
-    _check_cuda_args(a=a, b=b)
+    device, plan = _signature(a=a, b=b)
     y = torch.empty_like(a)
-    _launch(a, b, y, None, None, reverse=False)
+    _launch(a, b, y, None, None, device, plan)
     rglru_scan.launches += 1
     return y
 
@@ -128,9 +200,9 @@ def rglru_scan_reverse(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
     ``rglru_scan_bwd_plain`` on CPU tensors."""
     if _device(a, y, dy) == "cpu":
         return rglru_scan_bwd_plain(a, y, dy)
-    _check_cuda_args(a=a, y=y, dy=dy)
+    device, plan = _signature(a=a, y=y, dy=dy)
     da, db = torch.empty_like(a), torch.empty_like(a)
-    _launch(a, dy, y, da, db, reverse=True)
+    _launch(a, dy, y, da, db, device, plan)
     rglru_scan_reverse.launches += 1
     return da, db
 

@@ -6,6 +6,8 @@ card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -391,9 +393,15 @@ def test_flash_wrapper_raises_on_what_kernel_does_not_take(dev):
 
 # (B, T, W): the reference test's cases, a ragged T below and above the
 # kernel's unroll, W not a multiple of its block, and the training shape's
-# width at a short T
+# width at a short T; then T longer than the ring (4096) at B=1 and at the
+# training cell, W past a multiple of the stripe (100, 4100) with 16- and
+# 32-channel stripes, W % 4 != 0 (66, and 2110 on 32-channel stripes:
+# 4-byte copies), and T=1 and T=2
 RGLRU_CASES = [(1, 64, 128), (2, 200, 256), (1, 256, 512), (3, 33, 128),
-               (2, 7, 100), (1, 1, 64), (2, 128, 4096)]
+               (2, 7, 100), (1, 1, 64), (2, 128, 4096),
+               (1, 4096, 4096), (2, 4096, 4096), (1, 33, 4100),
+               (2, 9, 4100), (3, 2, 100), (2, 5, 66), (1, 1, 66),
+               (2, 17, 2110), (1, 2, 4096)]
 
 
 def _rglru_inputs(B, T, W, dev, seed):
@@ -423,6 +431,54 @@ def test_rglru_kernel_matches_plain(dev, case):
     leaves = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
     grads = torch.autograd.grad(rglru_scan(*leaves)[0], leaves, dy)
     assert torch.equal(grads[0], da) and torch.equal(grads[1], db)
+
+
+def test_rglru_kernel_takes_unaligned_inputs(dev):
+    """Inputs that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies though W % 4 == 0; the bits are the plain version's."""
+    B, T, W = 2, 40, 4096
+    a, b = _rglru_inputs(B, T, W, dev, seed=5)
+    dy = torch.randn(a.shape, device=dev)
+    views = []
+    for t in (a, b, dy):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        v = buf[1:].view(B, T, W)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        views.append(v)
+    y, _ = rglru_scan(views[0], views[1])
+    want_y, _ = rglru_scan_plain(a, b)
+    assert torch.equal(y, want_y)
+    yv = torch.empty(y.numel() + 1, device=dev)[1:].view(B, T, W)
+    yv.copy_(y)
+    da, db = rglru_scan_reverse(views[0], yv, views[2])
+    want_da, want_db = rglru_scan_bwd_plain(a, want_y, dy)
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+@pytest.mark.parametrize("channels,stages", [(16, 2), (16, 5), (16, 8),
+                                             (32, 2), (32, 3), (32, 8)])
+def test_rglru_kernel_gives_the_same_bits_under_every_plan(dev, channels,
+                                                           stages):
+    """The plan sets only the stripe and the ring's depth, never the order
+    of the roundings: every plan the kernel takes gives the plain
+    version's bits, forward and reverse, on a ragged T and W."""
+    mod = importlib.import_module("repro_torch.kernels.rglru_scan")
+    B, T, W = 3, 301, 4100
+    a, b = _rglru_inputs(B, T, W, dev, seed=channels + stages)
+    dy = torch.randn(a.shape, device=dev)
+    plan = mod.RGLRUPlan(channels, mod._STAGE_FLOATS // channels, stages,
+                         B * -(-W // channels))
+    device = a.device.index
+    y = torch.empty_like(a)
+    mod._launch(a, b, y, None, None, device, plan)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    mod._launch(a, dy, y, da, db, device, plan)
+    torch.cuda.synchronize()
+    want_y, _ = rglru_scan_plain(a, b)
+    want_da, want_db = rglru_scan_bwd_plain(a, want_y, dy)
+    assert torch.equal(y, want_y)
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
 
 
 def test_rglru_wrapper_raises_on_what_kernel_does_not_take(dev):

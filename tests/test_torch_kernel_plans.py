@@ -6,8 +6,9 @@ run (each split's softmax state from the plain version's scores, merged as
 the kernel merges them, equals the plain version), the RWKV6 WKV kernel's
 two passes (the per-chunk pass, then the state pass over column slices,
 give the plain version's output and last state), the dtype and shape
-dispatch of the attention wrappers, and the kernel build's hash over the
-sources and the headers they include."""
+dispatch of the attention wrappers, the RG-LRU scan's launch plan (every
+channel and step covered once, every SM given a block, shapes alone), and
+the kernel build's hash over the sources and the headers they include."""
 import importlib
 import inspect
 import math
@@ -25,6 +26,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_plain  # noqa: E402
 
 # the module, which the package's function of the same name shadows
 da_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+rg_mod = importlib.import_module("repro_torch.kernels.rglru_scan")
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 
 DESIGNS = ("simt", "mma16", "mma64")
@@ -440,6 +442,85 @@ def test_wkv_two_pass_decomposition_matches_plain(case):
     for g, w in ((got, want), (got_s, want_s)):
         assert g.shape == w.shape
         assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+# (B, T, W): the training cell and one 4096-token sequence, ragged W on
+# both stripe widths (100, 66, 4100, 2110), short T, and wide batches
+RGLRU_PLAN_SHAPES = [(2, 4096, 4096), (1, 4096, 4096), (1, 7, 100),
+                     (3, 1, 66), (1, 33, 4100), (2, 2, 4100), (2, 17, 2110),
+                     (64, 4096, 4096), (5, 300, 66), (1, 16, 1)]
+
+
+@pytest.mark.parametrize("shape", RGLRU_PLAN_SHAPES)
+def test_rglru_plan_covers_every_channel_and_step_once(shape):
+    """The plan's blocks, each a stripe of ``channels`` channels of one
+    row (the kernel's blockIdx: stripe fastest, then row), cover every
+    (b, w) channel exactly once; the stages, walked forward from 0 and in
+    reverse from T - 1 as the kernel walks them, cover every step once; a
+    stage holds the kernel's 512 floats of each input."""
+    B, T, W = shape
+    plan = rg_mod.rglru_plan(B, T, W, 132)
+    assert rg_mod.rglru_plan(B, T, W, 132, reverse=True)._replace(
+        stages=plan.stages) == plan
+    C, S = plan.channels, plan.steps
+    assert C in (16, 32) and C * S == 512 == rg_mod._STAGE_FLOATS
+    assert 2 <= plan.stages <= 8          # the kernel's ring: 2 to 8
+    stripes = -(-W // C)
+    assert plan.blocks == B * stripes
+    seen = np.zeros((B, W), np.int64)
+    for blk in range(plan.blocks):
+        b, w0 = blk // stripes, (blk % stripes) * C
+        seen[b, w0:min(W, w0 + C)] += 1
+    assert (seen == 1).all()
+    n_stages = -(-T // S)
+    fwd = [k * S + u for k in range(n_stages) for u in range(S)
+           if k * S + u < T]
+    rev = [T - 1 - k * S - u for k in range(n_stages) for u in range(S)
+           if T - 1 - k * S - u >= 0]
+    assert fwd == list(range(T)) and rev == list(range(T - 1, -1, -1))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_rglru_plan_gives_every_sm_a_block(B):
+    """At W=4096 (the cell, B=2, and one sequence, B=1) the plan fills all
+    132 SMs of an H100: 256 stripes of 32 channels at B=2, of 16 at B=1,
+    with the ring 6 stages deep forward and 3 in reverse."""
+    for reverse, stages in ((False, 6), (True, 3)):
+        plan = rg_mod.rglru_plan(B, 4096, 4096, 132, reverse)
+        assert plan.blocks >= 132
+        assert plan == rg_mod.RGLRUPlan(32 if B == 2 else 16, 16 if B == 2
+                                        else 32, stages, 256)
+
+
+def test_rglru_plan_depends_on_shapes_alone(monkeypatch):
+    """The cached plan takes integers, never a tensor; the wrapper's call
+    signature holds it per shape, so tensors of other values get the one
+    plan without a new check or plan."""
+    params = inspect.signature(rg_mod._plan.__wrapped__).parameters
+    assert {p.annotation for p in params.values()} <= {"int", "bool"}
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(rg_mod, "_sm_counts", {})
+    monkeypatch.setattr(rg_mod, "_signatures", {})
+    rg_mod._plan.cache_clear()
+    try:
+        a, b = torch.rand(1, 64, 4096), torch.randn(1, 64, 4096)
+        got = rg_mod._signature(a=a, b=b)
+        assert got[1] == rg_mod.rglru_plan(1, 64, 4096, 132)
+        rev = rg_mod._signature(a=a, y=b, dy=b)
+        assert rev[1] == rg_mod.rglru_plan(1, 64, 4096, 132, reverse=True)
+        checks = []
+        monkeypatch.setattr(rg_mod, "_check_cuda_args",
+                            lambda **kw: checks.append(kw))
+        a.fill_(float("nan"))
+        b.zero_()
+        assert rg_mod._signature(a=a, b=b) is got
+        assert rg_mod._signature(a=torch.ones(1, 64, 4096),
+                                 b=torch.ones(1, 64, 4096)) is got
+        assert checks == [] and rg_mod._plan.cache_info().misses == 2
+    finally:
+        rg_mod._plan.cache_clear()
 
 
 def _copy_csrc(tmp_path, monkeypatch):
