@@ -29,26 +29,42 @@ exits non-zero:
              H=16, N=160; the gradients through its Function against
              autograd of its plain version; the backward's state carry
              against a plain loop over the chunks).
-4. parity  — the serve engine on the card (kernels) against the same
-             engine on the CPU (plain versions), smoke configs in f32: the
-             paged plane on qwen2, the gather plane on gemma2 and qwen2.
+4. parity  — the serve engine on the card (kernels, captured steps)
+             against the same engine on the CPU (plain versions, eager),
+             smoke configs in f32: the paged plane on qwen2, the gather
+             plane on gemma2 and qwen2.
 5. serve   — the paged path: full-width qwen2-7b (28 layers, seeded
              random weights, bf16) served through ``ServeEngine(paged=
-             True)`` under a LERC prefix cache with byte pressure; every
-             attention launch is counted. Then one S=64 decode step
-             through the plain attention and one through K1 on the same
-             inputs (each layer's K1 output held to its plain version,
-             the logits at 4 layers within ``LOGITS_RTOL``, beside the
-             plain version summed in another order at 2 to 28 layers),
-             and a short run under torch.profiler: device busy and idle
-             share, K1's and the GEMMs' device time.
+             True)`` under a LERC prefix cache with byte pressure, each
+             step a replayed CUDA graph once its signature has been seen
+             twice; every attention launch is counted: K1's wrapper in
+             the eager steps and at each capture, and a replay's K1
+             launches from its graph's kernel nodes (a replay calls no
+             wrapper), 28 a step in all. The same run with
+             ``cuda_graphs=False`` (eager) must give the same tokens,
+             eviction log and metrics; both print wall, tokens/s, host ms
+             a step, steps replayed, captures and launches. Then one
+             S=64 decode step through the plain attention and one
+             through K1 on the same inputs (each layer's K1 output held
+             to its plain version, the logits at 4 layers within
+             ``LOGITS_RTOL``, beside the plain version summed in another
+             order at 2 to 28 layers); ``steady_decode``: 8 slots all
+             decoding, ms a step and device busy and idle share, K1's
+             launches, and its runs and device ms in the trace, captured
+             beside eager; and a short
+             captured run under
+             torch.profiler: device busy and idle share, K1's and the
+             GEMMs' device time.
 6. serve   — the gather path: full-width, full-depth gemma2-27b (46 layers
              alternating rolling-window and global attention, softcaps,
              bf16, seeded random weights) through ``ServeEngine(paged=
              False)`` under a LERC store smaller than the working set;
-             every attention is a K2 launch. Then one decode step through
-             the plain attention and one through K2 with the rolling
-             window wrapped, and a short profiled run.
+             every attention is a K2 launch, inside the step's graph.
+             Captured beside eager as for qwen2-7b (46 K2 launches a
+             step); then one decode step
+             through the plain attention and one through K2 with the
+             rolling window wrapped, ``steady_decode``, and a short
+             profiled run.
 7. train   — parity first: the four smoke configs in f32 trained 3
              steps on the card (K3, K5, K4) and on the CPU (plain routes)
              from the same weights and batches. Then the training path at full
@@ -67,7 +83,12 @@ exits non-zero:
 9. the kernels line, the card line, and the result line.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; a path whose kernel was never launched fails.
+just after; a path whose kernel was never launched fails. In the kernels
+line, ``launches`` is a wrapper's count in its path's run (on the serve
+paths, the eager steps' launches and one recorded into each graph at its
+capture), and K1's and K2's ``device_launches`` those eager launches plus
+the launches of the replayed graphs, read from each graph's kernel nodes
+(``StepProgram.replayed_kernels``).
 
 It imports only the port, torch and numpy, and needs no network.
 """
@@ -925,20 +946,165 @@ def shared_prefix_prompts(vocab, n, families, prefix, unique, seed):
 
 
 def run_engine(cfg, params, dev, prompts, *, cap_blocks, bt, slots, max_seq,
-               chunk, max_new, paged):
+               chunk, max_new, paged, cuda_graphs=None):
     probe = ServeEngine(cfg, params, max_slots=1, max_seq=bt,
                         store=PrefixStore(1 << 40, "lerc", block_tokens=bt),
                         pool_blocks=1, prefill_chunk=chunk, paged=paged,
-                        device=dev)
+                        device=dev, cuda_graphs=False)
     store = PrefixStore(cap_blocks * probe._block_nbytes(), "lerc",
                         block_tokens=bt)
     del probe
     eng = ServeEngine(cfg, params, max_slots=slots, max_seq=max_seq,
                       store=store, prefill_chunk=chunk, paged=paged,
-                      device=dev)
+                      device=dev, cuda_graphs=cuda_graphs)
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
     eng.run()
     return eng, store, reqs
+
+
+# the device kernel that each serve wrapper launches once a call, by the
+# names a graph's nodes and a trace record (K1's split merge, a second
+# kernel of some calls, is left out)
+KERNEL_NAMES = {"paged_decode_attention": ("paged_mma_kernel",
+                                           "paged_simt_kernel"),
+                "decode_attention": ("decode_attention_kernel",)}
+
+
+def named(kernel, by_name) -> int:
+    """The entries of ``by_name`` ({kernel name: n}) that are ``kernel``'s
+    device kernel, summed."""
+    return sum(n for name, n in by_name.items()
+               if any(k in name for k in KERNEL_NAMES[kernel]))
+
+
+def traced_kernel(prof, kernel) -> tuple:
+    """(runs, device ms) of ``kernel``'s device kernel in a finished
+    torch.profiler run, CUDA activity (a graph's kernels are recorded as
+    kernels)."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (named(kernel, {e.key: e.count for e in events}),
+            named(kernel, {e.key: e.self_device_time_total / 1e3
+                           for e in events}))
+
+
+def timed_serve(cfg, params, dev, prompts, kernel, cuda_graphs, **kw):
+    """One serve run with every launch counted: captured (the card's
+    default, ``cuda_graphs=None``) or eager (False). A wrapper counts its
+    launches on the host: the eager steps', and the one it records into a
+    graph at each capture; a replay launches its graph's kernel nodes,
+    which the program reads from each graph at its capture. Returns
+    ((engine, store, requests), the run's summary). Fails unless each
+    capture recorded ``n_layers`` launches of ``kernel``, the card ran it
+    ``n_layers`` times a step, eager or replayed, and, captured, most
+    steps replayed."""
+    t0 = time.time()
+    (eng, store, reqs), counts = counted(lambda: run_engine(
+        cfg, params, dev, prompts, cuda_graphs=cuda_graphs, **kw))
+    wall = time.time() - t0
+    prog = eng.step_program
+    assert prog.capture == (cuda_graphs is None)
+    recorded = named(kernel, prog.captured_kernels)
+    replayed = named(kernel, prog.replayed_kernels)
+    eager = counts[kernel] - recorded
+    assert recorded == cfg.n_layers * prog.captures, (recorded, prog.captures)
+    assert eager == cfg.n_layers * (eng.steps - prog.replays), \
+        (counts, eng.steps, prog.replays)
+    assert eager + replayed == cfg.n_layers * eng.steps, \
+        (eager, replayed, eng.steps)
+    if prog.capture:
+        assert prog.captures > 0 and prog.replays > eng.steps // 2, \
+            (prog.captures, prog.replays, eng.steps)
+    tokens = sum(len(r.generated) for r in reqs)
+    return (eng, store, reqs), {
+        "cuda_graphs": prog.capture, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "host_ms_per_step": wall * 1e3 / eng.steps, "engine_steps": eng.steps,
+        "steps_replayed": prog.replays, "captures": prog.captures,
+        "kernel_launches": counts, "graph_nodes": recorded,
+        "replayed_launches": replayed, "device_launches": eager + replayed}
+
+
+def assert_same_run(a, b) -> None:
+    """Two runs of one workload: identical tokens, eviction logs and
+    metrics."""
+    (ea, sa, ra), (eb, sb, rb) = a, b
+    assert [r.generated for r in ra] == [r.generated for r in rb]
+    assert sa.eviction_log == sb.eviction_log
+    assert ea.metrics() == eb.metrics()
+
+
+def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
+                  steps=32) -> None:
+    """8 slots all decoding, captured beside eager: ms a step by host
+    clock over ``steps`` steps once the decode signature has been captured
+    (the captured engine's first sight and capture of it come before),
+    then device busy and idle share of ``steps`` more under
+    torch.profiler, CUDA activity (a graph's kernels are recorded as
+    kernels), with the attention kernel's launches in those steps
+    (``n_layers`` a step: the wrapper's eagerly, the graph's nodes
+    captured), and its runs and device ms in the trace. Both engines must
+    have generated the same tokens."""
+    prompts = shared_prefix_prompts(cfg.vocab, 8, 8, prompt, 0, seed=3)
+    kernel = "paged_decode_attention" if paged else "decode_attention"
+    out, tokens = {}, []
+    for cuda_graphs in (None, False):
+        eng = ServeEngine(cfg, params, max_slots=8, max_seq=max_seq,
+                          prefill_chunk=chunk, paged=paged, device=dev,
+                          cuda_graphs=cuda_graphs)
+        reqs = [eng.submit(p, max_new=2 * steps + 8) for p in prompts]
+        while not all(r.n_generated for r in reqs):
+            eng.step()
+        for _ in range(2):          # the decode signature: seen, captured
+            eng.step()
+        prog = eng.step_program
+        replays = prog.replays
+        wrapper = paged_decode_attention if paged else decode_attention
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        calls, nodes = wrapper.launches, named(kernel, prog.replayed_kernels)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        calls = wrapper.launches - calls
+        nodes = named(kernel, prog.replayed_kernels) - nodes
+        # the profiled steps' launches: the wrapper's eagerly, the
+        # graph's nodes captured, where no wrapper is called
+        assert calls + nodes == cfg.n_layers * steps, (kernel, calls, nodes)
+        assert (calls if prog.capture else nodes) == 0, (calls, nodes)
+        by_name = device_ms_by_kernel(prof)
+        busy = sum(by_name.values())
+        # the trace's own count, below the launches where it lost
+        # records: 0 < runs <= launches
+        runs, kernel_ms = traced_kernel(prof, kernel)
+        assert 0 < runs <= cfg.n_layers * steps, (kernel, runs)
+        assert all(r.n_generated < r.max_new for r in reqs)
+        tokens.append([eng.drain(r) for r in reqs])
+        out["captured" if prog.capture else "eager"] = {
+            "ms_per_step": ms, "steps_replayed": prog.replays - replays,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_ms_per_step": busy / steps,
+            "device_idle_share": (1 - busy / wall_ms if busy else
+                                  "not measured: the profiler recorded no "
+                                  "device activity"),
+            f"{kernel}_launches": calls + nodes,
+            f"{kernel}_runs_in_trace": runs, f"{kernel}_ms": kernel_ms,
+            "gemm_ms": sum(t for n, t in by_name.items()
+                           if any(g in n.lower() for g in GEMM_NAMES)),
+            "top_kernels": [[n[:80], t] for n, t in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:5]]}
+        del eng, reqs
+    assert out["captured"]["steps_replayed"] == 2 * steps
+    assert tokens[0] == tokens[1]
+    emit("steady_decode", config=cfg.arch, paged=paged, slots=8,
+         prompt_tokens=prompt, steps=steps, **out)
 
 
 def counted(fn):
@@ -985,8 +1151,9 @@ def parity_phase(dev) -> None:
              kernel_launches=launches)
 
 
-def serve_phase(dev) -> int:
-    """The paged path at full width. Returns K1's launches in its run."""
+def serve_phase(dev) -> tuple:
+    """The paged path at full width. Returns K1's launches in its run:
+    the wrapper's count and the trace's."""
     cfg = configs.get("qwen2_7b")                  # full width, bf16
     t0 = time.time()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1002,16 +1169,25 @@ def serve_phase(dev) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     prompts = shared_prefix_prompts(cfg.vocab, 16, 4, 512, 64, seed=0)
 
-    t0 = time.time()
-    (eng, store, reqs), counts = counted(lambda: run_engine(
-        cfg, params, dev, prompts, cap_blocks=96, **kw))
-    wall = time.time() - t0
+    # the main path: every step signature captured at its second sighting
+    # and replayed after, K1 inside the graphs
+    (eng, store, reqs), run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", None,
+        cap_blocks=96, **kw)
+    counts = run["kernel_launches"]
     launches = counts["paged_decode_attention"]
+    wall = run["wall_s"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the yardstick: the same engine run eagerly, the same results
+    eager, eager_run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", False,
+        cap_blocks=96, **kw)
+    assert_same_run((eng, store, reqs), eager)
+    del eager
 
     m = eng.metrics()
     resident = sum(1 for n in store._nodes.values() if n.resident)
     tokens = [t for r in reqs for t in r.generated]
-    assert launches == cfg.n_layers * eng.steps, (launches, eng.steps)
     assert m["evictions"] > 0 and m["effective_hits"] > 0, m
     assert eng.pool.blocks_in_use == resident + 1
     assert len(tokens) == 16 * kw["max_new"]
@@ -1027,14 +1203,18 @@ def serve_phase(dev) -> int:
          prefill_tokens_skipped=m["prefill_tokens_skipped"],
          pool_blocks=m["pool_blocks"],
          pool_blocks_in_use=m["pool_blocks_in_use"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+         max_memory_allocated=peak, captured=run, eager=eager_run,
+         eager_identical=True)
 
     paged_decode_step(cfg, eng, dev)
+    del eng, store, reqs
+    steady_decode(cfg, params, dev, paged=True, chunk=64, prompt=64,
+                  max_seq=kw["max_seq"])
     profile_serve(cfg, params, dev, shared_prefix_prompts(
         cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
         "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
         "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
-    return launches
+    return launches, run["device_launches"]
 
 
 def reordered_plain(q, kp, vp, tables, qpos, softcap=None):
@@ -1199,9 +1379,10 @@ def compare_logits(what, logits) -> None:
          rtol=LOGITS_RTOL, argmax_agreement=agree)
 
 
-def gather_serve_phase(dev) -> int:
+def gather_serve_phase(dev) -> tuple:
     """The gather path at full width and depth: gemma2-27b, 46 layers, every
-    attention a K2 launch. Returns K2's launches in its run."""
+    attention a K2 launch. Returns K2's launches in its run: the wrapper's
+    count and the trace's."""
     cfg = configs.get("gemma2_27b")                # full width, bf16
     t0 = time.time()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1220,15 +1401,23 @@ def gather_serve_phase(dev) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     prompts = shared_prefix_prompts(cfg.vocab, 16, 4, 64, 16, seed=0)
 
-    t0 = time.time()
-    (eng, store, reqs), counts = counted(lambda: run_engine(
-        cfg, params, dev, prompts, cap_blocks=24, **kw))
-    wall = time.time() - t0
+    # the main path, captured (K2 inside the graph), then the yardstick:
+    # the same engine run eagerly, the same results
+    (eng, store, reqs), run = timed_serve(
+        cfg, params, dev, prompts, "decode_attention", None, cap_blocks=24,
+        **kw)
+    counts = run["kernel_launches"]
     launches = counts["decode_attention"]
+    wall = run["wall_s"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    eager, eager_run = timed_serve(
+        cfg, params, dev, prompts, "decode_attention", False, cap_blocks=24,
+        **kw)
+    assert_same_run((eng, store, reqs), eager)
+    del eager
 
     m = eng.metrics()
     tokens = [t for r in reqs for t in r.generated]
-    assert launches == cfg.n_layers * eng.steps, (launches, eng.steps)
     assert counts["paged_decode_attention"] == 0, counts
     assert m["evictions"] > 0 and m["hits"] > 0, m
     assert len(tokens) == 16 * kw["max_new"]
@@ -1246,15 +1435,18 @@ def gather_serve_phase(dev) -> int:
          prefill_tokens_skipped=m["prefill_tokens_skipped"],
          kv_transfer_dispatches=m["kv_transfer_dispatches"],
          device_kv_bytes=m["device_kv_bytes"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+         max_memory_allocated=peak, captured=run, eager=eager_run,
+         eager_identical=True)
     del eng, store, reqs
 
     gather_decode_step(cfg, params, dev)
+    steady_decode(cfg, params, dev, paged=False, chunk=1, prompt=16,
+                  max_seq=kw["max_seq"])
     profile_serve(cfg, params, dev, shared_prefix_prompts(
         cfg.vocab, 8, 4, 64, 16, seed=2), {**kw, "max_new": 4},
         "8 requests x (64 shared + 16 unique) prompt tokens, 4 new tokens, "
         "8 slots, chunk 1", "decode_attention", cap_blocks=24)
-    return launches
+    return launches, run["device_launches"]
 
 
 def gather_decode_step(cfg, params, dev) -> None:
@@ -1690,10 +1882,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity_phase(dev)
     train_parity_phase(dev)
-    k1_launches = serve_phase(dev)
+    k1_launches, k1_runs = serve_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # the qwen2 weights go before gemma2's
-    k2_launches = gather_serve_phase(dev)
+    k2_launches, k2_runs = gather_serve_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # gemma2's 54.5 GB go before training
     train_launches = train_phase(dev)
@@ -1707,13 +1899,15 @@ def main() -> int:
                     "_paged_kernel", max_err=k1["max_abs_err"],
                     kernel_ms=k1["kernel_ms"], shape="B=8 S=1 H=28 KV=4 "
                     "D=128 bt=16 NW=64, bf16", design=k1["design"],
+                    device_launches=k1_runs,
                     kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"])
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
                             k2_launches, k2)
     k2_entry.update(tpu_kernel="src/repro/kernels/decode_attention.py:"
                     "_decode_kernel", shape="B=8 H=32 KV=16 D=128 S=128 "
-                    "ragged, bf16", S4096=k2["S4096"])
+                    "ragged, bf16", S4096=k2["S4096"],
+                    device_launches=k2_runs)
     k3_entry = kernel_entry("flash_attention",
                             "src/repro/kernels/flash_attention.py:35",
                             train_launches["flash_attention"], k3)

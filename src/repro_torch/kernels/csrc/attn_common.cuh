@@ -1,5 +1,6 @@
-// Device helpers of the attention kernels (paged_attention.cu,
-// flash_attention.cu): asynchronous copies, the online-softmax step on the
+// Helpers of the attention kernels (paged_attention.cu, flash_attention.cu,
+// decode_attention.cu): the once-per-device shared-memory opt-in,
+// asynchronous copies, the online-softmax step on the
 // fp32 score fragments of a 16-row warp tile (the layout of mma.sync's and
 // wgmma's accumulators alike), and, for the paged kernel, ldmatrix and the
 // bf16 tensor-core product mma.sync.m16n8k16 with fp32 accumulation.
@@ -20,6 +21,24 @@ namespace attn {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// a kernel's dynamic shared memory, opted into once per device where it is
+// above the 48 KB a launch may take without: `bytes` is the most any launch
+// of `kernel` takes (the attribute is a ceiling; occupancy follows what a
+// launch asks for). Once, so that no launch, and no launch captured into a
+// CUDA graph, sets a function attribute
+template <auto kernel>
+cudaError_t allow_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static unsigned long long done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (done >> dev & 1)) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= 1ull << dev;
+  return err;
+}
 
 // 16-byte global -> shared copy that bypasses the registers (and L1); with
 // `pred` false it writes 16 zero bytes and reads nothing

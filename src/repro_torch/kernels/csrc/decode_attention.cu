@@ -55,6 +55,7 @@
 
 namespace {
 
+using attn::allow_smem;
 using attn::kNegInf;
 
 constexpr int kWarps = 8;
@@ -73,21 +74,6 @@ __host__ __device__ constexpr int keys_per_half_warp() {
 template <int NC>
 __host__ __device__ constexpr int smem_bytes() {
   return kStages * keys_per_half_warp<NC>() * kSubWarps * 2 * NC * 256;
-}
-
-// the kernel's dynamic shared memory, opted into once per device where it
-// is above the 48 KB a launch may take without
-template <auto kernel>
-cudaError_t allow_smem(int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  static unsigned long long done = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (done >> dev & 1)) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done |= 1ull << dev;
-  return err;
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }

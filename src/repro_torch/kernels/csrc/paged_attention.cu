@@ -756,14 +756,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   static_assert(RW == 4 || 4 * 16 * DP * 4 <= 2 * NS * BK * (DP + 8) * 2,
                 "the warps' merge reuses the K/V stages");
   if (keys_per_split % BK) return cudaErrorInvalidValue;
-  const int smem = (16 * RW + 2 * NS * BK) * (DP + 8) * (int)sizeof(bf16) +
-                   keys_per_split * (int)sizeof(int);
+  constexpr int tiles_smem =
+      (16 * RW + 2 * NS * BK) * (DP + 8) * (int)sizeof(bf16);
+  const int smem = tiles_smem + keys_per_split * (int)sizeof(int);
   auto kernel = paged_mma_kernel<DP, BK, NS, RW>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  // the most any split takes, so the opt-in is made once per device
+  cudaError_t err = attn::allow_smem<paged_mma_kernel<DP, BK, NS, RW>>(
+      tiles_smem + kMaxSplitKeys * (int)sizeof(int));
+  if (err != cudaSuccess) return err;
   const int rows = 16 * RW;
   const int tiles = (S * (H / KV) + rows - 1) / rows;
   const dim3 grid(tiles * n_splits, KV, B);
@@ -773,7 +773,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const int*>(qpos), static_cast<bf16*>(out),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc), S, H, KV,
       D, bt, NW, keys_per_split, scale, softcap);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
   return launch_merge<bf16>(part_ml, part_acc, out, B * S * H, n_splits, D,
                             stream);

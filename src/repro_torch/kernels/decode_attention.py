@@ -40,7 +40,7 @@ _SUB_WARPS = 16
 _sm_counts: Dict[int, int] = {}
 _occupancy: Dict[Tuple[int, int, int, int, int], int] = {}
 # per (device, stream): the merge's arrival counters, which the kernel
-# leaves at 0
+# leaves at 0 (a launch captured into a CUDA graph takes its own)
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 # per call signature: the launch's integer arguments, once its shapes,
 # dtypes, devices and options have passed _check_cuda_args
@@ -284,7 +284,17 @@ def _launch(fn, q, k, v, valid_len, out, device, n_splits, n_counters,
         B, H, D = q.shape
         part = torch.empty(B * H * n_splits * (D + 2), dtype=torch.float32,
                            device=q.device)
-        counters = _counter_buffer(device, stream, n_counters)
+        if torch.cuda.is_current_stream_capturing():
+            # a launch captured into a CUDA graph takes counters from the
+            # graph's pool, zeroed by the graph itself at every replay: a
+            # buffer kept for the capture stream would be allocated inside
+            # the capture, zeroed only at that graph's first replay, and
+            # baked into every later graph, whose replays would then rely
+            # on it outliving the graph that zeroed it
+            counters = torch.zeros(n_counters, dtype=torch.int32,
+                                   device=q.device)
+        else:
+            counters = _counter_buffer(device, stream, n_counters)
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
               out.data_ptr(), 0 if part is None else part.data_ptr(),
               0 if counters is None else counters.data_ptr(), *ints, stream)

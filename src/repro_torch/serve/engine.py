@@ -26,14 +26,21 @@ on both of its data planes.
   step N+1's feed *on device*, so the engine only waits on a device→host
   copy when a request finishes (or every ``eos_interval`` steps when EOS
   detection is on).
+* **The step as one captured program** (``step_graph.StepProgram``, the
+  counterpart of the reference's jitted ``_step_fn``) — on the card each
+  step signature, (S, NW) on the paged plane and S on the gather plane,
+  runs eagerly when first seen, is captured into a CUDA graph (the
+  kernels launched inside it) when seen again, and replays from then on
+  (``cuda_graphs``); on the CPU the same program runs eagerly.
 
 Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
 / ``insert`` / ``complete_request`` calls and so every eviction decision)
 is the reference engine's, op for op: ``tests/test_torch_engine.py`` holds
 the two to identical tokens, eviction logs and metrics.
 
-Not ported yet, and refused with ``NotImplementedError``: tiered stores,
-serve tensor parallelism and ``step_hlo``.
+Not ported yet, and refused with ``NotImplementedError``: tiered stores
+and serve tensor parallelism. ``step_hlo`` is refused too: the port's step
+has no HLO; on the card it is a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -48,12 +55,13 @@ import torch
 
 from ..models.api import init_decode_cache
 from ..models.common import ModelConfig, tree_map, tree_paths
-from ..models.lm import cache_shapes, lm_decode_step
+from ..models.lm import cache_shapes
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
 from .kv_pool import KVBlockPool, chain_block_nbytes
 from .prefix_store import PrefixStore
 from .scheduler import QueueFull, Scheduler, StepCostModel, make_scheduler
+from .step_graph import StepProgram
 
 # pool rows a default-constructed engine starts with when the store's byte
 # budget is effectively unbounded (the pool doubles on demand)
@@ -106,8 +114,15 @@ class ServeEngine:
                  clock: Optional[StepCostModel] = None,
                  eos_interval: int = 8, tp: int = 1,
                  kv_shard=None,
-                 device: Union[str, torch.device, None] = None) -> None:
+                 device: Union[str, torch.device, None] = None,
+                 cuda_graphs: Optional[bool] = None) -> None:
+        """``cuda_graphs``: run each step as a captured CUDA graph (None:
+        on the card yes, on the CPU no, as ``decode_kernel="auto"``
+        chooses; True on the CPU raises)."""
         self.device = resolve_device(device)
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                             f"{self.device}: the CPU runs the step eagerly")
         if tp != 1 or kv_shard is not None:
             raise NotImplementedError(
                 "serve tensor parallelism is not ported yet")
@@ -170,18 +185,19 @@ class ServeEngine:
             assert self._junk_row == 0
             self._tables: List[List[int]] = [[] for _ in range(self.B)]
             # tables only change on admission/completion, not per decode
-            # step — keep the device copy and re-upload only when dirty
-            self._tables_dev: Optional[torch.Tensor] = None
+            # step — the step keeps the device copy, re-uploaded only when
+            # dirty
             self._tables_dirty = True
         else:
             self.cache = init_decode_cache(cfg, self.B, max_seq,
                                            device=self.device)
         self.store.evict_payload = self.pool.free
 
-        self._prev_out = torch.zeros((self.B,), dtype=torch.int32,
-                                     device=self.device)
-        self._done_dev = torch.zeros((self.B,), dtype=torch.bool,
-                                     device=self.device)
+        self.step_program = StepProgram(
+            cfg, self.params, slots=self.B, paged=self.paged, eos_id=eos_id,
+            device=self.device,
+            capture=(self.device.type == "cuda" if cuda_graphs is None
+                     else cuda_graphs))
         self._rid = itertools.count(1)
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * self.B
@@ -419,33 +435,6 @@ class ServeEngine:
                                     "restored_tokens": restored})
 
     # ----------------------------------------------------------------- step
-    def _dispatch(self, tokens: np.ndarray, meta: np.ndarray,
-                  tables: Optional[torch.Tensor]) -> torch.Tensor:
-        """One batched decode step on the device: route the previous
-        argmax into decode feeds, run the model over the pool (paged, with
-        block ``tables``) or the per-slot caches (gather, ``tables`` None),
-        written in place, and fold the emitted tokens into the device-side
-        EOS mask. Returns the (B,) argmax tokens, left on the device.
-
-        meta rows: 0 = per-slot position, 1 = real tokens this step,
-        2 = route the previous argmax into column 0 (decode feed),
-        3 = this step's output counts as a generated token (EOS-eligible),
-        4 = clear the slot's done bit (slot re-admitted) — ONE (5, B)
-        host→device upload per step."""
-        t = torch.from_numpy(tokens).to(self.device)
-        meta_d = torch.from_numpy(meta).to(self.device)
-        pos, lens, use_prev = meta_d[0], meta_d[1], meta_d[2].bool()
-        t[:, 0] = torch.where(use_prev, self._prev_out, t[:, 0])
-        kv = self.pool.buffers if self.paged else self.cache
-        logits, _ = lm_decode_step(self.cfg, self.params, kv, t, pos,
-                                   seq_lens=lens, paged_tables=tables)
-        out = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        if self.eos_id >= 0:
-            emit, reset = meta_d[3].bool(), meta_d[4].bool()
-            self._done_dev = ((self._done_dev & ~reset)
-                              | (emit & (out == self.eos_id)))
-        return out
-
     def step(self) -> List[Request]:
         """One engine iteration. Decode slots pack first (one pipelined
         token each); the scheduler then divides this step's prefill work —
@@ -529,11 +518,15 @@ class ServeEngine:
             for r in active:
                 tab = self._tables[r.slot]
                 tables[r.slot, :len(tab)] = tab
-            self._tables_dev = torch.from_numpy(tables).to(self.device)
             self._tables_dirty = False
-        out_tok = self._dispatch(tokens, meta,
-                                 self._tables_dev if self.paged else None)
-        self._prev_out = out_tok
+        else:
+            tables = None
+        # one batched step on the device: the previous argmax routed into
+        # the decode feeds, the KV written in place, the (B,) argmax left
+        # on the device
+        out_tok = self.step_program(
+            self.pool.buffers if self.paged else self.cache, tokens, meta,
+            tables)
         if dispatch is not None:
             dispatch.end(args={"S": S, "fed": len(fed),
                                "decoding": len(decoding)})
@@ -577,10 +570,10 @@ class ServeEngine:
             # EOS between checks decoded a few garbage tokens past it —
             # _finish truncates them — in exchange for pipelined steps.
             if trace is None:
-                done = self._done_dev.cpu().numpy()
+                done = self.step_program.done.cpu().numpy()
             else:
                 with trace.span("eos_sync", "engine", pid, _TID_ENGINE):
-                    done = self._done_dev.cpu().numpy()
+                    done = self.step_program.done.cpu().numpy()
             self.readback_syncs += 1
             for r in decoding:
                 if not r.done and done[r.slot]:
@@ -638,7 +631,8 @@ class ServeEngine:
     def step_hlo(self) -> str:
         raise NotImplementedError(
             "step_hlo exposes the reference's compiled XLA step; the port "
-            "runs eagerly and has no counterpart")
+            "has no HLO: on the card its step is a captured CUDA graph "
+            "(serve/step_graph.py), on the CPU it runs eagerly")
 
     # -------------------------------------------------------------- metrics
     def _kv_bytes(self) -> int:

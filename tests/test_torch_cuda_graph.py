@@ -1,0 +1,212 @@
+"""The serve step captured into CUDA graphs on the card against the same
+engine run eagerly (``cuda_graphs=False``): smoke configs in f32 and bf16,
+the paged plane (qwen2, K1 in every step) and the gather plane (gemma2, K2
+in every step). Both engines must give identical tokens, eviction logs and
+``metrics()``, with EOS detection on, a cancel mid-decode, a trace
+recorder attached, and a pool that grows mid-run; each kernel must have
+been launched ``n_layers`` times a step in both, by its wrapper in the
+eager steps and by the graphs' kernel nodes in the replayed ones, each
+capture recording ``n_layers`` of them; and a capture that meets a host
+sync must raise, not run the step eagerly.
+
+These tests need a GPU and nvcc; elsewhere they skip. Run them on the
+card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_graph.py
+"""
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import (decode_attention,  # noqa: E402
+                                 paged_decode_attention)
+from repro_torch.models import init_params, model_spec  # noqa: E402
+from repro_torch.obs import TraceRecorder  # noqa: E402
+from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
+from repro_torch.serve import step_graph  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+BT = 8
+PROMPT = 32
+# (arch, paged, prefill chunk, the kernel of every step's attention)
+PLANES = [("qwen2_7b", True, 8, paged_decode_attention),
+          ("gemma2_27b", False, 1, decode_attention)]
+COUNTED = (paged_decode_attention, decode_attention)
+# the device kernel that each wrapper launches once a call, by the names a
+# graph's nodes record (K1's split merge, a second kernel of some calls, is
+# left out)
+KERNEL_NAMES = {"paged_decode_attention": ("paged_mma_kernel",
+                                           "paged_simt_kernel"),
+                "decode_attention": ("decode_attention_kernel",)}
+
+
+def _named(kernel, by_name):
+    return sum(n for name, n in by_name.items()
+               if any(k in name for k in KERNEL_NAMES[kernel.__name__]))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def workload(vocab, n_requests=8, n_families=3, seed=7):
+    """Shared-prefix requests of uniform length, repeats of the first and
+    the last, and a ragged one (its last prefill chunk is a one-off)."""
+    rng = np.random.default_rng(seed)
+    prefixes = [list(rng.integers(0, vocab, PROMPT - BT))
+                for _ in range(n_families)]
+    reqs = [prefixes[i % n_families] + list(rng.integers(0, vocab, BT))
+            for i in range(n_requests)]
+    return reqs + [list(reqs[0]), list(reqs[-1]), list(range(3, 40))]
+
+
+def _engine(cfg, params, dev, paged, chunk, cuda_graphs, bounded=True,
+            **kw):
+    if bounded:
+        probe = ServeEngine(cfg, params, max_slots=2, max_seq=64,
+                            store=PrefixStore(1 << 30, "lerc",
+                                              block_tokens=BT),
+                            pool_blocks=1, prefill_chunk=chunk, paged=paged,
+                            device=dev, cuda_graphs=False)
+        store = PrefixStore(probe._block_nbytes() * 10, "lerc",
+                            block_tokens=BT)
+    else:
+        # the engine's default, unbounded capacity (its default block of
+        # 16 tokens would not fit gemma2 smoke's 8-token window): the pool
+        # doubles on demand
+        store = PrefixStore(1 << 62, "lerc", block_tokens=BT)
+        kw["pool_blocks"] = 8
+    return ServeEngine(cfg, params, max_slots=2, max_seq=64, store=store,
+                       prefill_chunk=chunk, paged=paged, device=dev,
+                       cuda_graphs=cuda_graphs, **kw)
+
+
+def _drive(eng, scenario, max_new):
+    """Run ``scenario`` on ``eng``; returns what must match, and the
+    trace's events (wall clock dropped) when one is attached."""
+    rec = None
+    if scenario == "trace":
+        rec = TraceRecorder()
+        eng.attach_trace(rec)
+    reqs = [eng.submit(p, max_new=max_new)
+            for p in workload(eng.cfg.vocab)]
+    streamed = None
+    if scenario == "cancel":
+        while not any(r.n_generated >= 2 for r in reqs):
+            eng.step()
+        streamed = eng.drain(reqs[0])
+        live = [r for r in reqs if r.slot >= 0 and not r.done
+                and r.n_generated >= 2]
+        assert eng.cancel(live[0]) and eng.cancel(reqs[-1])
+    eng.run()
+    events = None if rec is None else [
+        {k: v for k, v in ev.items() if k not in ("wall", "dur_wall")}
+        for ev in rec.events]
+    return ([r.generated for r in reqs], streamed,
+            [r.cancelled for r in reqs], eng.store.eviction_log,
+            eng.metrics(), events)
+
+
+def _counted_run(eng, scenario, max_new):
+    for k in COUNTED:
+        k.launches = 0
+    out = _drive(eng, scenario, max_new)
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in COUNTED}
+
+
+@pytest.mark.parametrize("scenario", ["eos", "cancel", "trace", "growth"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,paged,chunk,kernel", PLANES)
+def test_captured_engine_matches_eager(dev, arch, paged, chunk, kernel,
+                                       dtype, scenario):
+    cfg = configs.get(arch, smoke=True).replace(dtype=dtype)
+    params = init_params(model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=dtype)
+    kw = dict(bounded=scenario != "growth")
+    max_new = 8
+    if scenario == "eos":
+        plain = _drive(_engine(cfg, params, dev, paged, chunk, False, **kw),
+                       "plain", max_new)
+        kw.update(eos_id=plain[0][2][1], eos_interval=3)
+    # K2's merge counters: one buffer per stream of eager launches, none
+    # for captured ones
+    counters = sys.modules["repro_torch.kernels.decode_attention"]._counters
+    streams = set(counters) | {(torch.cuda.current_device(),
+                                torch.cuda.current_stream().cuda_stream)}
+    runs = []
+    for cuda_graphs in (True, False):
+        eng = _engine(cfg, params, dev, paged, chunk, cuda_graphs, **kw)
+        blocks = eng.pool.num_blocks
+        out, launches = _counted_run(eng, scenario, max_new)
+        assert set(counters) <= streams, (set(counters), streams)
+        prog = eng.step_program
+        # the wrapper counts the eager steps' launches and the one it
+        # records into a graph at each capture; a replay launches its
+        # graph's kernel nodes
+        recorded = _named(kernel, prog.captured_kernels)
+        eager = launches[kernel.__name__] - recorded
+        assert recorded == cfg.n_layers * prog.captures
+        assert eager == cfg.n_layers * (eng.steps - prog.replays), \
+            (launches, eng.steps, prog.replays)
+        assert eager + _named(kernel, prog.replayed_kernels) == \
+            cfg.n_layers * eng.steps
+        assert sum(launches.values()) == launches[kernel.__name__]
+        runs.append(out)
+        if cuda_graphs:
+            assert prog.captures > 0 and prog.replays > eng.steps // 2, \
+                (prog.captures, prog.replays, eng.steps)
+        else:
+            assert prog.captures == prog.replays == 0
+        if scenario == "growth":
+            assert eng.pool.num_blocks > blocks
+    captured, eager = runs
+    if scenario == "eos":
+        assert any(len(g) < max_new for g in eager[0]), "no EOS hit"
+    if scenario == "trace":
+        assert len(eager[5]) > 100
+    if scenario != "growth":
+        assert eager[4]["evictions"] > 0
+    assert captured == eager
+
+
+@pytest.mark.parametrize("arch,paged,chunk,kernel", PLANES)
+def test_capture_meeting_a_host_sync_raises(dev, monkeypatch, arch, paged,
+                                            chunk, kernel):
+    """A host sync inside the step is allowed in the eager first sighting
+    and fails the capture at the second: the step raises, and no step runs
+    eagerly in its place."""
+    cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
+    params = init_params(model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=torch.float32)
+    decode = step_graph.lm_decode_step
+
+    def syncing(cfg, params, kv, tok, pos, **kw):
+        int(tok.sum().item())
+        return decode(cfg, params, kv, tok, pos, **kw)
+    monkeypatch.setattr(step_graph, "lm_decode_step", syncing)
+    eng = _engine(cfg, params, dev, paged, chunk, True)
+    for p in workload(cfg.vocab):
+        eng.submit(p, max_new=4)
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError):
+        eng.run()
+    # the process is as before the capture: the caller's stream current,
+    # no capture under way, the random generators usable
+    assert torch.cuda.current_stream() == stream
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.isfinite(torch.randn(4, device=dev)).all()
+    torch.cuda.synchronize()
+    prog = eng.step_program
+    assert prog.captures == prog.replays == 0
+    assert eng.steps == len(prog._seen) >= 1
