@@ -80,7 +80,20 @@ exits non-zero:
              checkpoint recomputes); each layer's K4 output held to its
              plain version; a profiled step; four more steps, the
              backward's state carry two ways (A B B A).
-9. the kernels line, the card line, and the result line.
+9. train_resume — rwkv6-3b at full width cut to 4 layers (bf16, seeded
+             random weights, batch 2 x 4096) fed by the port's LERC
+             ``Executor`` (token and label blocks zipped into peer pairs,
+             a cache of 6 token blocks spilling to disk): 6 steps twice
+             from fresh states (the determinism control, equal bit for
+             bit), then 3 steps, an ``AsyncCheckpointer`` save, the state
+             dropped and loaded back, 3 more steps, equal to the
+             uninterrupted run bit for bit; 8 K4 launches a step; the
+             checkpoint's bytes, snapshot ms, write and load seconds, each
+             step's ms and the pipeline's counters printed. Then the
+             launcher on the rwkv6 smoke config with ``--ckpt-dir``: run
+             through, and preempted by SIGTERM at step 3 and resumed with
+             ``--resume``; the two step-6 checkpoints equal byte for byte.
+10. the kernels line, the card line, and the result line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails. In the kernels
@@ -94,11 +107,17 @@ It imports only the port, torch and numpy, and needs no network.
 """
 from __future__ import annotations
 
+import dataclasses
+import filecmp
 import gc
 import json
 import math
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -109,10 +128,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.data import LoaderConfig, TrainLoader  # noqa: E402
+from repro_torch.data import (Executor, LoaderConfig,  # noqa: E402
+                              Pipeline, TrainLoader)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_design  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
 # the modules, which the package's functions of the same names shadow
 decode_attention_mod = sys.modules[  # noqa: E402
@@ -136,9 +157,9 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
-from repro_torch.train import (OptConfig, TrainConfig,  # noqa: E402
-                               adamw_init, build_train_step,
-                               make_train_state)
+from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
+                               TrainConfig, adamw_init, build_train_step,
+                               latest, load, make_train_state)
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -1742,6 +1763,191 @@ def rwkv_train_phase(dev) -> dict:
     return counts
 
 
+RESUME_STEPS, RESUME_AT = 6, 3
+
+
+def lerc_pipeline(cfg, B, S, spill_dir):
+    """``examples/train_lm.py``'s input: 8 token blocks of (B, S) int32
+    from a seeded generator and their label blocks (``np.roll`` by one
+    token), zipped into a batches dataset (a peer group a step) under the
+    port's LERC ``Executor``, whose cache holds 6 token blocks, below the
+    working set, so blocks spill to ``spill_dir`` and are re-read."""
+    rng = np.random.default_rng(0)
+    tok = [rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+           for _ in range(8)]
+    lab = [np.roll(tb, -1, axis=1) for tb in tok]
+    pipe = Pipeline("train")
+    rt = pipe.source(tok, "tokens")
+    rl = pipe.source(lab, "labels")
+    rz = pipe.zip_([rt, rl], lambda t, l: np.stack([t, l]), "batches")
+    ex = Executor(pipe, cache_bytes=6 * tok[0].nbytes, policy="lerc",
+                  spill_dir=spill_dir)
+    ex.load_sources(rt)
+    ex.load_sources(rl)
+    return ex, rz
+
+
+def leaves_differ(a, b) -> list:
+    """The paths of the leaves of two state trees that are not equal bit
+    for bit."""
+    lb = dict(tree_paths(b))
+    return ["/".join(p) for p, t in tree_paths(a)
+            if t.dtype != lb[p].dtype or not torch.equal(t, lb[p])]
+
+
+def train_resume_phase(dev) -> None:
+    """rwkv6-3b at full width, 4 layers, fed by the port's LERC pipeline:
+    run A (6 steps), its control A' (the same 6 steps from a fresh state,
+    which must equal A bit for bit), and run B (3 steps, an
+    ``AsyncCheckpointer`` save at step 3, the state dropped and loaded
+    back from disk, 3 more steps), whose parameters, moments, step and
+    losses of steps 3-5 must equal A's bit for bit. Then the launcher
+    (``launch.train.train_main``) on the rwkv6 smoke config: 6 steps with
+    a checkpoint every 3, and in a second directory a run preempted by
+    SIGTERM during step 3 and resumed with ``--resume``; their
+    ``step_00000006`` files must be equal byte for byte."""
+    cfg = configs.get("rwkv6_3b").replace(n_layers=4)
+    tc = TrainConfig(opt=OptConfig(total_steps=RESUME_STEPS,
+                                   warmup_steps=1))
+    B, S = 2, 4096
+    step_fn = build_train_step(cfg, tc)
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    t_phase = time.time()
+
+    def fresh():
+        return make_train_state(cfg, tc, torch.Generator(
+            device=dev).manual_seed(0), dev)
+
+    def run(name, state, start, n):
+        ex, rz = lerc_pipeline(cfg, B, S, os.path.join(root, "spill", name))
+        steps = []
+
+        def go():
+            nonlocal state
+            for i in range(start, start + n):
+                pair = ex.get(rz, i % 8)
+                batch = {"tokens": torch.from_numpy(pair[0]).to(dev),
+                         "targets": torch.from_numpy(pair[1]).to(dev)}
+                t = time.time()
+                state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+                steps.append({"step": i, "loss": m["loss"].item(),
+                              "ms": (time.time() - t) * 1e3})
+        _, launches = counted(go)
+        assert launches["rwkv6_wkv"] == 2 * cfg.n_layers * n, launches
+        for st in steps:
+            assert math.isfinite(st["loss"]), steps
+        emit("train_resume_run", run=name, steps=steps,
+             kernel_launches={k: v for k, v in launches.items() if v},
+             pipeline_metrics=ex.metrics.as_dict(),
+             pipeline_stats=dataclasses.asdict(ex.stats))
+        return state, [st["loss"] for st in steps]
+
+    try:
+        a, losses_a = run("A", fresh(), 0, RESUME_STEPS)
+        control, losses_c = run("A_control", fresh(), 0, RESUME_STEPS)
+        control_differs = leaves_differ(a, control)
+        control_equal = not control_differs and losses_c == losses_a
+        del control
+        assert control_equal, ("the uninterrupted run is not deterministic",
+                               control_differs, losses_a, losses_c)
+
+        b, losses_b = run("B_first", fresh(), 0, RESUME_AT)
+        ck = AsyncCheckpointer(os.path.join(root, "ckpt"))
+        t0 = time.time()
+        ck.save(RESUME_AT, {"state": b, "loader": {"next_step": RESUME_AT}})
+        t1 = time.time()
+        ck.wait()
+        t2 = time.time()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = latest(os.path.join(root, "ckpt"))
+        ckpt_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t3 = time.time()
+        step, payload = load(path, dev)
+        torch.cuda.synchronize()
+        load_s = time.time() - t3
+        assert step == RESUME_AT
+        start = int(payload["loader"]["next_step"])
+        b, more = run("B_resumed", payload["state"], start,
+                      RESUME_STEPS - start)
+        losses_b += more
+        differs = leaves_differ(a, b)
+        assert not differs, ("resumed run differs", differs)
+        assert losses_b[RESUME_AT:] == losses_a[RESUME_AT:], (losses_a,
+                                                              losses_b)
+        n_params = sum(t.numel() for _, t in tree_paths(a["params"]))
+        del a, b, payload
+        gc.collect()
+        torch.cuda.empty_cache()
+        launcher = launcher_resume(root)
+        emit("train_resume", config="rwkv6_3b full width (d_model 2560, 16 "
+             "heads x 160, d_ff 8960, vocab 65536, tied embeddings), bf16, "
+             "random weights (seed 0)", params=n_params, batch=B, seq_len=S,
+             reduced={"n_layers": "32 -> 4: the phase writes the whole "
+                      "train state to disk and reads it back; at full depth "
+                      "that would be about 29 GB of host memory and disk a "
+                      "write, and the full-depth step is timed by the "
+                      "rwkv6_3b train phase"},
+             losses_a=losses_a, losses_b=losses_b,
+             control_equal=control_equal, resumed_equal=True,
+             checkpoint_bytes=ckpt_bytes,
+             snapshot_ms=(t1 - t0) * 1e3, write_s=t2 - t1, load_s=load_s,
+             launcher=launcher, seconds=time.time() - t_phase)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def launcher_resume(root) -> dict:
+    """The launcher on the card: ``--arch rwkv6_3b --smoke --steps 6
+    --ckpt-every 3`` run through, and in a second directory preempted by
+    SIGTERM during step 3 (a last checkpoint, then exit) and resumed with
+    ``--resume`` to step 6; the two ``step_00000006`` must be equal file
+    by file, byte for byte. Returns what it checked, for the phase's
+    line."""
+    argv = ["--arch", "rwkv6_3b", "--smoke", "--steps", str(RESUME_STEPS),
+            "--ckpt-every", str(RESUME_AT), "--log-every", "1"]
+    full, split = os.path.join(root, "full"), os.path.join(root, "split")
+    real = launch_train.build_train_step
+
+    def preempting(cfg, tc):
+        step_fn, calls = real(cfg, tc), []
+
+        def step(state, batch):
+            calls.append(1)
+            if len(calls) == RESUME_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step_fn(state, batch)
+        return step
+
+    def launcher(args):
+        return counted(lambda: launch_train.train_main(argv + args))[1]
+
+    n_full = launcher(["--ckpt-dir", full])
+    with mock.patch.object(launch_train, "build_train_step", preempting):
+        n_first = launcher(["--ckpt-dir", split])
+    assert sorted(os.listdir(split)) == [f"step_{RESUME_AT:08d}"]
+    n_resumed = launcher(["--ckpt-dir", split, "--resume"])
+    a = os.path.join(full, f"step_{RESUME_STEPS:08d}")
+    b = os.path.join(split, f"step_{RESUME_STEPS:08d}")
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    per_step = 2 * configs.get("rwkv6_3b", smoke=True).n_layers
+    for n, steps in ((n_full, RESUME_STEPS), (n_first, RESUME_AT),
+                     (n_resumed, RESUME_STEPS - RESUME_AT)):
+        assert n["rwkv6_wkv"] == per_step * steps, n
+    return {"argv": argv, "files": len(names),
+            "bytes": sum(os.path.getsize(os.path.join(a, f))
+                         for f in names),
+            "step6_equal": True, "rwkv6_wkv_launches": {
+                "full": n_full["rwkv6_wkv"],
+                "preempted": n_first["rwkv6_wkv"],
+                "resumed": n_resumed["rwkv6_wkv"]}}
+
+
 def layer_check(cfg, state, batch) -> None:
     """One forward at the trained weights and a fresh batch: every K3 and
     K5 call held to its plain version on the same inputs (the kernel's
@@ -1892,6 +2098,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # recurrentgemma's state goes before rwkv6's
     k4_launches = rwkv_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()       # rwkv6's 32-layer state goes first
+    train_resume_phase(dev)
     k1_entry = kernel_entry("paged_attention",
                             "src/repro/kernels/paged_attention.py:41",
                             k1_launches, k1)

@@ -144,8 +144,19 @@ class KVBlockPool:
         clamped so the block fits the leaf, as the reference's
         ``dynamic_slice`` clamps it: a rolling-window leaf narrower than
         the chain gives its first ``bt`` slots for every late block.
-        Device-to-device only. (Gather-engine publish path.)"""
+        A leaf narrower than one block raises ``TypeError``, as the
+        reference's ``dynamic_slice`` does, checked from the shapes before
+        any device op. Device-to-device only. (Gather-engine publish
+        path.)"""
         bt = self.block_tokens
+        for path, leaf in tree_paths(cache):
+            width = leaf.shape[_row_axis(leaf) + 1]
+            if width < bt:
+                name = "/".join(map(str, path))
+                raise TypeError(
+                    f"cache leaf {name!r} keeps a window of {width} tokens, "
+                    f"narrower than the store's block of {bt} tokens: give "
+                    f"the store blocks of at most {width} tokens")
         rows = torch.tensor(idxs, dtype=torch.long, device=self.device)
         starts = torch.tensor([p * bt for p in block_positions],
                               dtype=torch.long, device=self.device)
