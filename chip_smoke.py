@@ -54,7 +54,15 @@ exits non-zero:
              beside eager; and a short
              captured run under
              torch.profiler: device busy and idle share, K1's and the
-             GEMMs' device time.
+             GEMMs' device time. Then ``tiered_serve``: two waves of 16
+             requests (the same 4 prefixes, fresh suffixes) under five
+             stores, (e) unbounded, (a) 96 blocks, (b) 96 over a lossless
+             pinned host tier of 256 blocks, (c) the same host bytes in
+             int8, (d) 32 host blocks over a 512-block disk tier; (b) and
+             (d) must demote and promote, take (e)'s steps and give its
+             tokens, and prefill fewer wave-2 tokens than (a); each wave's
+             wall, the store's tier counters, K1's launches and every pool
+             transfer's blocks, ms and GB/s are printed.
 6. serve   — the gather path: full-width, full-depth gemma2-27b (46 layers
              alternating rolling-window and global attention, softcaps,
              bf16, seeded random weights) through ``ServeEngine(paged=
@@ -156,7 +164,8 @@ from repro_torch.models import (init_decode_cache,  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
-from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
+from repro_torch.serve import (PrefixStore, ServeEngine,  # noqa: E402
+                               TieredKVStore)
 from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
                                TrainConfig, adamw_init, build_train_step,
                                latest, load, make_train_state)
@@ -1235,7 +1244,222 @@ def serve_phase(dev) -> tuple:
         cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
         "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
         "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
+    tiered_serve(cfg, params, dev, prompts, kw)
     return launches, run["device_launches"]
+
+
+# ---------------------------------------------------------- tiered serve
+
+
+def tree_nbytes(x) -> int:
+    """Bytes of the host arrays in a (nested dict / tuple) tree."""
+    if isinstance(x, dict):
+        return sum(tree_nbytes(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(tree_nbytes(v) for v in x)
+    return 0 if x is None else x.nbytes
+
+
+class TransferClock:
+    """Host-clock timers around a pool's ``read_rows``/``write_rows``: a
+    ``synchronize`` before (the steps queued ahead are not the copy's
+    time) and after (the copy and its scatter are). Per direction: calls,
+    blocks, bytes and ms."""
+
+    def __init__(self):
+        self.stats = {}
+
+    def wrap(self, pool, name, direction):
+        fn = getattr(pool, name)
+
+        def timed(idxs, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(idxs, *args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            s = self.stats.setdefault(direction, {
+                "calls": 0, "blocks": 0, "bytes": 0, "ms": 0.0})
+            s["calls"] += 1
+            s["blocks"] += len(idxs)
+            s["bytes"] += tree_nbytes(out if name == "read_rows" else args)
+            s["ms"] += ms
+            return out
+
+        setattr(pool, name, timed)
+
+    def summary(self) -> dict:
+        return {d: {**s, "ms_per_block": s["ms"] / max(s["blocks"], 1),
+                    "GB_per_s": s["bytes"] / max(s["ms"], 1e-9) / 1e6}
+                for d, s in self.stats.items()}
+
+
+TIER_RUNS = ["e", "a", "b", "c", "d"]
+TIER_STORES = {
+    "e": "PrefixStore unbounded (never evicts): the oracle for tokens",
+    "a": "PrefixStore of 96 blocks: evict and recompute",
+    "b": "TieredKVStore, 96 device blocks, lossless host tier of 256 "
+         "blocks",
+    "c": "TieredKVStore, 96 device blocks, the same host bytes in int8",
+    "d": "TieredKVStore, 96 device blocks, lossless host tier of 32 "
+         "blocks, disk tier of 512 blocks"}
+
+
+def tiered_run(name, cfg, params, dev, waves, kw, blk, card) -> tuple:
+    """One run of ``tiered_serve``: the store of ``name``, two waves each
+    submitted and run, captured steps; K1 counted as ``timed_serve``
+    counts it and each pool's transfers timed."""
+    cap = 96 * blk
+    disk_dir = None
+    pool_blocks = None
+    if name == "e":
+        store = PrefixStore(1 << 62, "lerc", block_tokens=kw["bt"])
+        pool_blocks = 1024         # never grows: the graphs are never dropped
+    elif name == "a":
+        store = PrefixStore(cap, "lerc", block_tokens=kw["bt"])
+    elif name in ("b", "c"):
+        store = TieredKVStore(cap, "lerc", block_tokens=kw["bt"],
+                              host_capacity_bytes=256 * blk,
+                              kv_quant="int8" if name == "c" else None)
+    else:
+        disk_dir = tempfile.mkdtemp(prefix="chip-smoke-kv-disk-")
+        store = TieredKVStore(cap, "lerc", block_tokens=kw["bt"],
+                              host_capacity_bytes=32 * blk,
+                              disk_capacity_bytes=512 * blk,
+                              disk_dir=disk_dir)
+    eng = ServeEngine(cfg, params, max_slots=kw["slots"],
+                      max_seq=kw["max_seq"], store=store,
+                      prefill_chunk=kw["chunk"], paged=True, device=dev,
+                      pool_blocks=pool_blocks)
+    clock = TransferClock()
+    clock.wrap(eng.pool, "read_rows", "device_to_host")
+    clock.wrap(eng.pool, "write_rows", "host_to_device")
+    if getattr(store, "host_pool", None) is not None:
+        # the host halves: rows stored into and taken from the host tier
+        clock.wrap(store.host_pool, "write_rows", "into_host_rows")
+        clock.wrap(store.host_pool, "read_rows", "from_host_rows")
+    if getattr(store, "disk_pool", None) is not None:
+        clock.wrap(store.disk_pool, "write_rows", "host_to_disk")
+        clock.wrap(store.disk_pool, "read_rows", "disk_to_host")
+    prog = eng.step_program
+    for k in COUNTED:
+        k.launches = 0
+    reqs, per_wave = [], []
+    for wave in waves:
+        before = eng.metrics()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = [eng.submit(p, max_new=kw["max_new"]) for p in wave]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = eng.metrics()
+        reqs += rs
+        per_wave.append({
+            "wall_s": wall,
+            "tokens_per_s": sum(len(r.generated) for r in rs) / wall,
+            **{k: after[k] - before[k] for k in (
+                "engine_steps", "prefill_tokens", "prefill_tokens_skipped",
+                "evictions", "demotions", "promotions", "tier1_hits",
+                "tier2_hits", "disk_demotions", "disk_promotions")}})
+    launches = paged_decode_attention.launches
+    recorded = named("paged_decode_attention", prog.captured_kernels)
+    replayed = named("paged_decode_attention", prog.replayed_kernels)
+    eager = launches - recorded
+    assert recorded == cfg.n_layers * prog.captures, (recorded, prog.captures)
+    assert eager + replayed == cfg.n_layers * eng.steps, \
+        (eager, replayed, eng.steps)
+    m = eng.metrics()
+    hp = getattr(store, "host_pool", None)
+    out = {
+        "store": TIER_STORES[name], "nvidia_smi": card, "waves": per_wave,
+        "engine_steps": eng.steps, "steps_replayed": prog.replays,
+        "captures": prog.captures,
+        "paged_attention_launches": launches, "graph_nodes": recorded,
+        "replayed_launches": replayed, "device_launches": eager + replayed,
+        **{k: m.get(k, 0) for k in (
+            "prefill_tokens", "prefill_tokens_skipped", "evictions",
+            "demotions", "promotions", "tier1_hits", "tier2_hits",
+            "disk_demotions", "disk_promotions", "host_evictions",
+            "quantized_demotions", "dequantized_promotions",
+            "promotion_dispatches", "host_blocks", "host_high_water",
+            "disk_blocks", "disk_high_water", "host_block_nbytes")},
+        "pinned_host_bytes": (sum(t.numel() for t in hp.pinned)
+                              if hp is not None else 0),
+        "transfers": clock.summary()}
+    tokens = [r.generated for r in reqs]
+    eng.close()
+    if disk_dir is not None:
+        assert not os.listdir(disk_dir), "close() left disk tier files"
+        os.rmdir(disk_dir)
+    return out, tokens
+
+
+def tiered_serve(cfg, params, dev, wave1, kw) -> None:
+    """The compressed tier ladder on full-width qwen2-7b: two waves of 16
+    requests (wave 1 ``serve_phase``'s prompts; wave 2 the same 4 shared
+    prefixes with fresh 64-token suffixes) through five stores: (e) an
+    unbounded ``PrefixStore``, (a) one of 96 chain blocks, (b) a
+    ``TieredKVStore`` of 96 device blocks over a lossless pinned host
+    tier of 256 blocks, (c) the same host bytes in int8, (d) a lossless
+    host tier of 32 blocks over a disk tier of 512. (b) and (d) must
+    demote and promote, take (e)'s engine steps and generate (e)'s
+    tokens, and prefill fewer tokens in wave 2 than (a); (c)'s agreement
+    with (b) is printed."""
+    rng = np.random.default_rng(3)
+    wave2 = [wave1[i % 4][:512] + list(rng.integers(0, cfg.vocab, 64))
+             for i in range(16)]
+    probe = ServeEngine(cfg, params, max_slots=1, max_seq=kw["bt"],
+                        store=PrefixStore(1 << 40, "lerc",
+                                          block_tokens=kw["bt"]),
+                        pool_blocks=1, paged=True, device=dev,
+                        cuda_graphs=False)
+    blk = probe.pool.block_nbytes
+    del probe
+    card = card_line()
+    runs, tokens = {}, {}
+    for name in TIER_RUNS:
+        runs[name], tokens[name] = tiered_run(
+            name, cfg, params, dev, (wave1, wave2), kw, blk, card)
+        emit("tiered_serve_run", run=name, **runs[name])
+        gc.collect()
+    for name in ("b", "d"):
+        r = runs[name]
+        assert r["demotions"] > 0 and r["promotions"] > 0 \
+            and r["tier1_hits"] > 0, (name, r)
+        assert r["engine_steps"] == runs["e"]["engine_steps"], \
+            (name, r["engine_steps"], runs["e"]["engine_steps"])
+        assert tokens[name] == tokens["e"], name
+        assert r["waves"][1]["prefill_tokens"] \
+            < runs["a"]["waves"][1]["prefill_tokens"], name
+    assert runs["d"]["disk_demotions"] > 0 \
+        and runs["d"]["disk_promotions"] > 0, runs["d"]
+    assert runs["c"]["dequantized_promotions"] > 0, runs["c"]
+    for name in ("b", "c", "d"):
+        assert runs[name]["captures"] <= runs["a"]["captures"], \
+            (name, runs[name]["captures"], runs["a"]["captures"])
+
+    def agree(a, b):
+        n = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            n += 1
+        return n / max(len(a), 1)
+
+    emit("tiered_serve", config="qwen2_7b full width, 28 layers, bf16, "
+         "random weights (seed 0), paged plane, bt=16, 8 slots, max_seq "
+         "640, chunk 64, 32 new tokens, 2 waves x 16 requests",
+         nvidia_smi=card, chain_block_bytes=blk,
+         int8_block_bytes=runs["c"]["host_block_nbytes"],
+         device_store_blocks=96, tokens_identical_b_d_e=True,
+         steps_equal_b_d_e=runs["e"]["engine_steps"],
+         wave2_prefill_tokens={n: runs[n]["waves"][1]["prefill_tokens"]
+                               for n in TIER_RUNS},
+         captures={n: runs[n]["captures"] for n in TIER_RUNS},
+         int8_mean_leading_agreement_with_b=sum(
+             agree(c, b) for c, b in zip(tokens["c"], tokens["b"]))
+         / len(tokens["b"]))
 
 
 def reordered_plain(q, kp, vp, tables, qpos, softcap=None):

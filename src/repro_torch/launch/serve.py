@@ -1,22 +1,29 @@
 """Serving entry point: continuous batching + LERC prefix cache; mirrors
-``src/repro/launch/serve.py`` for the planes the port has (single shard,
-single tier, tp=1, batch submit-then-run loop).
+``src/repro/launch/serve.py`` for the planes the port has (one engine,
+tp=1): the paged and gather planes, the compressed tier ladder
+(``--host-cache-kb``, ``--kv-quant``, ``--disk-cache-mb``), the timed front
+door (``--arrival``) and the single engine's fault plan.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 16 --slots 8 --max-seq 640 --shared-prefix 512 \\
-      --prefill-chunk 64 --block-tokens 16
+      --prefill-chunk 64 --block-tokens 16 --host-cache-kb 262144
 
 The paged plane is the default for global-attention patterns and
 ``--no-paged-attention`` forces the gather plane; patterns with rolling-
 window layers (gemma2's "LG") run the gather plane with ``--prefill-chunk``
-clamped to 1. Runs on the GPU unless ``--device cpu`` asks for the CPU
-(where the attention kernels run their plain versions); without a GPU the
-default raises. Weights are seeded random (``--seed``), made by the port's
-own init.
+clamped to 1. With ``--arrival`` requests arrive on a timed trace (Poisson
+/ bursty / diurnal, seeded) with ``--deadline-ms`` TTFT deadlines and
+``--max-queue`` admission control, and the report adds TTFT/TPOT
+percentiles and goodput on the virtual clock. Runs on the GPU unless
+``--device cpu`` asks for the CPU (where the attention kernels run their
+plain versions); without a GPU the default raises. Weights are seeded
+random (``--seed``), made by the port's own init. ``--shards`` and ``--tp``
+are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -26,10 +33,16 @@ import torch
 
 from .. import configs
 from ..core import POLICIES
+from ..faults import FaultPlan
 from ..models import init_params, model_spec
 from ..obs import TraceRecorder, jsonable
-from ..serve import BudgetedScheduler, PrefixStore, ServeEngine
+from ..serve import (BudgetedScheduler, PrefixStore, ServeEngine,
+                     TieredKVStore, TracedRequest, latency_stats, play_trace)
 from ..serve.engine import resolve_device
+from ..sim import bursty_arrivals, diurnal_arrivals, poisson_arrivals
+
+_ARRIVALS = {"poisson": poisson_arrivals, "bursty": bursty_arrivals,
+             "diurnal": diurnal_arrivals}
 
 
 def serve_main(argv=None) -> int:
@@ -61,6 +74,27 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="device KV pool size in blocks "
                          "(default: sized to --cache-kb)")
+    ap.add_argument("--host-cache-kb", type=int, default=0,
+                    help="host-memory KV tier: device-pressure evictions "
+                         "demote blocks here (page-locked memory on the "
+                         "GPU) and prefix hits promote them back instead "
+                         "of recomputing (0 disables the tier)")
+    ap.add_argument("--kv-quant", default="none",
+                    choices=["none", "int8", "fp8"],
+                    help="transcode demoted KV blocks to this format "
+                         "(per-layer-per-block f32 scales): the host/disk "
+                         "byte budgets then hold ~2-4x more blocks; "
+                         "promotion dequantizes on device. 'none' keeps "
+                         "every path bit-identical to the lossless tier")
+    ap.add_argument("--disk-cache-mb", type=int, default=0,
+                    help="disk KV tier (np.memmap row files): host-tier "
+                         "evictions demote here instead of dying, and "
+                         "lookups promote disk-resident chains back to the "
+                         "device pool (0 disables; needs --host-cache-kb "
+                         "> 0)")
+    ap.add_argument("--disk-dir", default=None,
+                    help="directory for the disk tier's memmap files "
+                         "(default: a TemporaryDirectory per engine)")
     ap.add_argument("--scheduler", default="fcfs",
                     choices=["fcfs", "decode-first", "budgeted"],
                     help="step scheduler: fcfs (full-chunk prefill for "
@@ -70,6 +104,32 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prompt tokens per step for the budgeted "
                          "scheduler (None = uncapped, 0 = decode-first)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request TTFT deadline on the virtual clock "
+                         "(None = best-effort; goodput counts completions)")
+    ap.add_argument("--arrival", default=None,
+                    choices=sorted(_ARRIVALS),
+                    help="drive requests through the timed front door "
+                         "with this arrival process instead of the "
+                         "batch submit-then-run loop")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="mean arrivals per virtual time unit")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission-control queue bound; arrivals past it "
+                         "are shed with QueueFull")
+    ap.add_argument("--retry-rejected", type=int, default=0,
+                    help="re-submit QueueFull-shed arrivals up to N times, "
+                         "waiting the engine's advertised retry-after "
+                         "between attempts (retries count against goodput)")
+    ap.add_argument("--fault-plan", default=None, metavar="PATH",
+                    help="JSON repro_torch.faults.FaultPlan: disk I/O "
+                         "errors and slow promotions of the tier ladder — "
+                         "the run then exercises quarantine and degraded "
+                         "promotion deterministically (shard crashes need "
+                         "shards, which are not ported)")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="override the fault plan's seed (same plan, "
+                         "different draw sequence)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record a Chrome/Perfetto trace of the whole run "
@@ -83,9 +143,39 @@ def serve_main(argv=None) -> int:
                     help="torch device to serve on (default: cuda; 'cpu' "
                          "runs the plain attention)")
     args = ap.parse_args(argv)
+
+    # flag cross-validation up front — a bad combination must die with an
+    # actionable message before any model weights are initialised
+    if args.disk_cache_mb > 0 and args.host_cache_kb <= 0:
+        ap.error("--disk-cache-mb needs --host-cache-kb > 0: blocks demote "
+                 "device -> host -> disk, so a disk tier without a host "
+                 "tier is unreachable. Add --host-cache-kb.")
+    if args.disk_dir is not None and args.disk_cache_mb <= 0:
+        ap.error("--disk-dir has no effect without --disk-cache-mb > 0 "
+                 "(there is no disk tier to place there)")
+    if args.kv_quant != "none" and args.host_cache_kb <= 0:
+        ap.error(f"--kv-quant {args.kv_quant} transcodes blocks demoted to "
+                 "the host/disk tiers, which --host-cache-kb 0 disables. "
+                 "Add --host-cache-kb or drop --kv-quant.")
     if args.prefill_budget is not None and args.scheduler != "budgeted":
         ap.error(f"--prefill-budget only applies to --scheduler budgeted "
                  f"(got --scheduler {args.scheduler})")
+    if args.fault_seed is not None and args.fault_plan is None:
+        ap.error("--fault-seed overrides a plan's seed; pass --fault-plan")
+    injector = None
+    if args.fault_plan is not None:
+        try:
+            plan = FaultPlan.from_json(args.fault_plan)
+        except (OSError, ValueError, TypeError) as e:
+            ap.error(f"--fault-plan {args.fault_plan}: {e}")
+        if args.fault_seed is not None:
+            plan = dataclasses.replace(plan, seed=args.fault_seed)
+        if plan.shard_crashes:
+            crashed = sorted({k for _, k in plan.shard_crashes})
+            ap.error(f"fault plan crashes shards {crashed}, but this "
+                     "launcher runs one engine and no shard to crash "
+                     "(--shards is not ported)")
+        injector = plan.injector()
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch, smoke=args.smoke)
@@ -104,18 +194,39 @@ def serve_main(argv=None) -> int:
         args.prefill_chunk = 1
     scheduler = (BudgetedScheduler(args.prefill_budget)
                  if args.scheduler == "budgeted" else args.scheduler)
-    store = PrefixStore(capacity_bytes=args.cache_kb * 1024,
-                        policy=args.policy, block_tokens=args.block_tokens)
+    host_bytes = args.host_cache_kb * 1024
+    if host_bytes > 0:
+        store: PrefixStore = TieredKVStore(
+            capacity_bytes=args.cache_kb * 1024, policy=args.policy,
+            block_tokens=args.block_tokens,
+            host_capacity_bytes=host_bytes, kv_quant=args.kv_quant,
+            disk_capacity_bytes=args.disk_cache_mb * 1024 * 1024,
+            disk_dir=args.disk_dir)
+        # disk-error / slow-promotion injection: attach before the engine
+        # wires the pools so the disk pool inherits the injector
+        store.faults = injector
+    else:
+        store = PrefixStore(capacity_bytes=args.cache_kb * 1024,
+                            policy=args.policy,
+                            block_tokens=args.block_tokens)
     eng = ServeEngine(cfg, params, max_slots=args.slots,
                       max_seq=args.max_seq, store=store,
                       prefill_chunk=args.prefill_chunk,
                       pool_blocks=args.pool_blocks, paged=args.paged,
-                      scheduler=scheduler, device=device)
+                      scheduler=scheduler, max_queue=args.max_queue,
+                      device=device)
 
     recorder = None
     if args.trace is not None:
         recorder = TraceRecorder(limit=args.trace_limit)
         eng.attach_trace(recorder)
+
+    if host_bytes > 0 and eng.store.host_pool.num_blocks == 0:
+        # a host budget below one KV block sizes the pool to zero rows,
+        # silently disabling the tier — say so up front
+        print(f"warning: --host-cache-kb {args.host_cache_kb} is below one "
+              f"KV block per engine ({eng.pool.block_nbytes} B); host tier "
+              "disabled", file=sys.stderr)
 
     rng = np.random.default_rng(args.seed)
     n_families = max(args.requests // 4, 1)
@@ -125,16 +236,34 @@ def serve_main(argv=None) -> int:
                + list(rng.integers(0, cfg.vocab, 8))
                for i in range(args.requests)]
     t0 = time.time()
-    for p in prompts:
-        eng.submit(p, max_new=args.max_new)
-    eng.run()
+    report = None
+    if args.arrival is not None:
+        times = _ARRIVALS[args.arrival](args.requests, args.arrival_rate,
+                                        args.seed)
+        trace = [TracedRequest(t=t, prompt=p, max_new=args.max_new,
+                               deadline=args.deadline_ms)
+                 for t, p in zip(times, prompts)]
+        report = play_trace(eng, trace, retry_rejected=args.retry_rejected)
+    else:
+        for p in prompts:
+            eng.submit(p, max_new=args.max_new)
+        eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     m = eng.metrics()
+    if report is not None:
+        m.update(latency_stats(report))
+    if injector is not None:
+        for name in sorted(injector.counters):
+            m[name] = injector.counters[name]
     print(f"policy={args.policy}  shards=1  tp=1  "
           f"paged={'on' if eng.paged else 'off'}  "
-          f"scheduler={args.scheduler}  device={device}  "
-          f"wall={time.time()-t0:.1f}s")
+          f"scheduler={args.scheduler}"
+          + (f"  arrival={args.arrival}@{args.arrival_rate}"
+             if args.arrival else "")
+          + f"  host_cache_kb={args.host_cache_kb}  "
+          f"kv_quant={args.kv_quant}  disk_cache_mb={args.disk_cache_mb}  "
+          f"device={device}  wall={time.time()-t0:.1f}s")
     for k, v in m.items():
         print(f"  {k:26s} {v:.3f}" if isinstance(v, float)
               else f"  {k:26s} {v}")
@@ -148,6 +277,7 @@ def serve_main(argv=None) -> int:
             json.dump(jsonable({"args": vars(args), "metrics": m}),
                       f, indent=2)
         print(f"metrics: {args.metrics_json}")
+    eng.close()       # deterministic disk-tier teardown (memmaps + files)
     return 0
 
 

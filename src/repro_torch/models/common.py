@@ -128,11 +128,13 @@ def tree_paths(tree, prefix=()):
         yield prefix, tree
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested-dict tree."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested-dict tree (with the leaves
+    at the same paths of the trees ``rest`` as further arguments)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def unflatten(flat):

@@ -33,14 +33,24 @@ on both of its data planes.
   kernels launched inside it) when seen again, and replays from then on
   (``cuda_graphs``); on the CPU the same program runs eagerly.
 
-Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
-/ ``insert`` / ``complete_request`` calls and so every eviction decision)
-is the reference engine's, op for op: ``tests/test_torch_engine.py`` holds
-the two to identical tokens, eviction logs and metrics.
+* **The compressed tier ladder** (``store=TieredKVStore(...)``) — the
+  engine builds the store's host pool (page-locked when the device pool is
+  on CUDA) and, when budgeted, its disk pool, and attaches them: device-
+  pressure victims demote to host memory (transcoded to int8/fp8 with
+  ``kv_quant``), host-pressure victims to the disk tier, and a lookup that
+  walks over demoted blocks promotes the chain back into the device pool
+  in place, so the captured steps stay valid. ``close()`` tears the disk
+  tier's files down.
 
-Not ported yet, and refused with ``NotImplementedError``: tiered stores
-and serve tensor parallelism. ``step_hlo`` is refused too: the port's step
-has no HLO; on the card it is a captured CUDA graph.
+Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
+/ ``insert`` / ``complete_request`` calls and so every eviction, demotion
+and promotion decision) is the reference engine's, op for op:
+``tests/test_torch_engine.py`` and ``tests/test_torch_tiered.py`` hold the
+two to identical tokens, eviction logs and metrics.
+
+Not ported yet, and refused with ``NotImplementedError``: serve tensor
+parallelism. ``step_hlo`` is refused too: the port's step has no HLO; on
+the card it is a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -58,10 +68,13 @@ from ..models.common import ModelConfig, tree_map, tree_paths
 from ..models.lm import cache_shapes
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
+from .disk_pool import DiskBlockPool
+from .host_pool import HostBlockPool
 from .kv_pool import KVBlockPool, chain_block_nbytes
 from .prefix_store import PrefixStore
 from .scheduler import QueueFull, Scheduler, StepCostModel, make_scheduler
 from .step_graph import StepProgram
+from .tiered import TieredKVStore
 
 # pool rows a default-constructed engine starts with when the store's byte
 # budget is effectively unbounded (the pool doubles on demand)
@@ -126,8 +139,6 @@ class ServeEngine:
         if tp != 1 or kv_shard is not None:
             raise NotImplementedError(
                 "serve tensor parallelism is not ported yet")
-        if hasattr(store, "attach_pools"):
-            raise NotImplementedError("tiered KV stores are not ported yet")
         # KV leaves as meta tensors: shapes and dtypes, no memory
         template = tree_map(
             lambda s: torch.empty(s, dtype=cfg.dtype, device="meta"),
@@ -191,7 +202,26 @@ class ServeEngine:
         else:
             self.cache = init_decode_cache(cfg, self.B, max_seq,
                                            device=self.device)
-        self.store.evict_payload = self.pool.free
+        if isinstance(self.store, TieredKVStore):
+            # tier 1: host-side pool sized to the store's host byte budget
+            # (0 rows when the tier is disabled — the store then behaves
+            # op-for-op like a plain PrefixStore), page-locked on the
+            # card. With a quant format the pool stores transcoded rows,
+            # so the same budget holds ~itemsize-ratio more blocks. Tier
+            # 2, when budgeted, is a memmap pool mirroring the host layout.
+            host_pool = HostBlockPool.for_device_pool(
+                template, self.pool, self.store.host_capacity,
+                quant=self.store.quant,
+                pin_memory=self.device.type == "cuda")
+            disk_pool = None
+            if self.store.disk_capacity > 0:
+                disk_pool = DiskBlockPool.for_device_pool(
+                    template, self.pool, self.store.disk_capacity,
+                    quant=self.store.disk_quant,
+                    directory=self.store.disk_dir)
+            self.store.attach_pools(self.pool, host_pool, disk_pool)
+        else:
+            self.store.evict_payload = self.pool.free
 
         self.step_program = StepProgram(
             cfg, self.params, slots=self.B, paged=self.paged, eos_id=eos_id,
@@ -537,6 +567,12 @@ class ServeEngine:
         attn_pairs = int((meta[1] * (meta[0] + meta[1]) * pre).sum())
         self.now += float(self.clock(int(meta[1].sum()) - len(decoding),
                                      len(decoding), attn_pairs))
+        stall = getattr(self.store, "pending_stall", 0.0)
+        if stall:
+            # slow promotions this step (injected disk stalls) charge the
+            # virtual clock once, after the step's compute charge
+            self.now += stall
+            self.store.pending_stall = 0.0
         if trace is not None:
             trace.vt = self.now
             trace.counter("engine", pid, {
@@ -628,6 +664,14 @@ class ServeEngine:
                 return
             self.step()
 
+    def close(self) -> None:
+        """Deterministic teardown of file-backed store resources (the
+        disk tier's memmap row files). Idempotent; safe on stores with
+        no disk tier."""
+        close = getattr(self.store, "close", None)
+        if close is not None:
+            close()
+
     def step_hlo(self) -> str:
         raise NotImplementedError(
             "step_hlo exposes the reference's compiled XLA step; the port "
@@ -665,4 +709,31 @@ class ServeEngine:
                 self.prefill_tokens_skipped
                 / max(self.prefill_tokens + self.prefill_tokens_skipped, 1)),
         })
+        if isinstance(self.store, TieredKVStore) \
+                and self.store.host_pool is not None:
+            hp = self.store.host_pool
+            m.update({
+                "host_blocks": hp.num_blocks,
+                "host_blocks_in_use": hp.blocks_in_use,
+                "host_high_water": hp.high_water,
+            })
+            if self.store.quant is not None:
+                # per-tier occupancy in BYTES + the transcode economics:
+                # how many blocks one host byte buys vs the lossless tier
+                m.update({
+                    "kv_quant": self.store.quant.name,
+                    "host_block_nbytes": hp.block_nbytes,
+                    "host_bytes_in_use": hp.bytes_in_use,
+                    "host_compression_ratio": (
+                        self.pool.block_nbytes / max(hp.block_nbytes, 1)),
+                })
+            dp = self.store.disk_pool
+            if dp is not None:
+                m.update({
+                    "disk_blocks": dp.num_blocks,
+                    "disk_blocks_in_use": dp.blocks_in_use,
+                    "disk_high_water": dp.high_water,
+                    "disk_block_nbytes": dp.block_nbytes,
+                    "disk_bytes_in_use": dp.bytes_in_use,
+                })
         return m

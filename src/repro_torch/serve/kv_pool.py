@@ -1,5 +1,5 @@
 """Device-resident paged KV block pool; mirrors
-``src/repro/serve/kv_pool.py`` (its untiered, unsharded half).
+``src/repro/serve/kv_pool.py`` (its unsharded half).
 
 The serving data plane's ONLY KV storage: one preallocated device buffer
 per KV cache leaf, shaped ``(*lead, num_blocks, block_tokens, KV, D)``
@@ -17,14 +17,27 @@ place; ``copy_row`` is the only copy the engine issues. The gather engine
 on a hit (``gather_into``) and slot→pool on publish (``scatter_from``);
 every row then has exactly one referent. When the free list runs dry under
 an unbounded-capacity store the pool doubles.
+
+The tiered store moves rows to and from the host (``read_rows``,
+``write_rows``): one gather (and an on-device quantize) and ONE
+device→host copy a demotion batch, ONE host→device copy and an in-place
+scatter (``index_copy_``) a promotion batch. Rows are written in place,
+so the CUDA graphs of the engine's step, which hold the buffers by
+address, stay valid across promotions. Every transfer runs on the
+current stream, after the steps already queued on it: a demotion reads
+the rows those steps wrote, and the host reads its copy only once the
+copy has landed.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..models.common import tree_map, tree_paths
+from .. import quant as quantlib
+from ..models.common import tree_map, tree_paths, unflatten
+from ..quant import QuantSpec
 
 
 def _pool_leaf_shape(leaf_shape: Tuple[int, ...], num_blocks: int,
@@ -51,6 +64,89 @@ def chain_block_nbytes(cache_template, block_tokens: int) -> int:
     return sum(leaf.numel() * leaf.element_size()
                // (leaf.shape[-4] * leaf.shape[-3]) * block_tokens
                for leaf in _leaves(cache_template))
+
+
+def quant_chain_block_nbytes(cache_template, block_tokens: int,
+                             spec: Optional[QuantSpec]) -> int:
+    """Bytes of ONE *transcoded* chain block: narrow payload plus one f32
+    scale per (layer-stack) sub-block of every leaf. This is the number a
+    quantized tier's byte budget divides by."""
+    if spec is None:
+        return chain_block_nbytes(cache_template, block_tokens)
+    total = 0
+    for leaf in _leaves(cache_template):
+        lead_numel = 1
+        for d in leaf.shape[:-4]:
+            lead_numel *= d
+        block_numel = (lead_numel * block_tokens
+                       * leaf.shape[-2] * leaf.shape[-1])
+        total += (spec.itemsize * block_numel
+                  + quantlib.SCALE_DTYPE.itemsize * lead_numel)
+    return total
+
+
+def _aligned(n: int) -> int:
+    """``n`` bytes rounded up to 16, so every tensor packed into one byte
+    buffer starts aligned for any element width."""
+    return -(-n // 16) * 16
+
+
+def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Host arrays (storage dtypes) of device ``tensors``: on the card ONE
+    device→host copy of all of them, packed into one byte buffer, into
+    page-locked memory, waited on before the arrays are handed out; on the
+    CPU the tensors' own memory (they are fresh copies already)."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return [quantlib.to_host(t.contiguous()) for t in tensors]
+    parts, offs, total = [], [], 0
+    for t in tensors:
+        raw = t.contiguous().view(-1).view(torch.uint8)
+        pad = _aligned(raw.numel()) - raw.numel()
+        parts.append(raw)
+        if pad:
+            parts.append(raw.new_zeros(pad))
+        offs.append(total)
+        total += raw.numel() + pad
+    flat = torch.cat(parts)
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    # the copy is queued behind the steps on the stream; wait for it
+    # before the host reads a byte
+    torch.cuda.current_stream(flat.device).synchronize()
+    buf = host.numpy()
+    out = []
+    for t, off in zip(tensors, offs):
+        dt = quantlib.storage_dtype(t.dtype)
+        n = t.numel() * t.element_size()
+        out.append(buf[off:off + n].view(dt).reshape(tuple(t.shape)))
+    return out
+
+
+def _to_device(arrays: List[np.ndarray], dtypes: List[torch.dtype],
+               device: torch.device) -> List[torch.Tensor]:
+    """Tensors of ``dtypes`` on ``device`` from host ``arrays`` (storage
+    dtypes, values cast where a dtype differs): on the card ONE
+    host→device copy from a fresh page-locked buffer, which PyTorch's host
+    allocator keeps until the copy has run; on the CPU the arrays' own
+    memory where no cast is needed."""
+    arrays = [quantlib.as_storage(a, quantlib.storage_dtype(d))
+              for a, d in zip(arrays, dtypes)]
+    if device.type == "cpu":
+        # a read-only array (a memmap opened for reading, an array of
+        # another framework) is copied: torch shares only writable memory
+        return [quantlib.from_host(np.ascontiguousarray(a) if a.flags.writeable
+                                   else a.copy()) for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += _aligned(a.nbytes)
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    buf = host.numpy()
+    for a, off in zip(arrays, offs):
+        buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)[...] = a
+    flat = host.to(device, non_blocking=True)
+    return [flat[off:off + a.nbytes].view(d).view(a.shape)
+            for a, d, off in zip(arrays, dtypes, offs)]
 
 
 class KVBlockPool:
@@ -175,3 +271,53 @@ class KVBlockPool:
         for pbuf in _leaves(self.buffers):
             ax = _row_axis(pbuf)
             pbuf.select(ax, dst).copy_(pbuf.select(ax, src))
+
+    # ------------------------------------------------- host-tier transfers
+    def read_rows(self, idxs: List[int], quant: Optional[QuantSpec] = None):
+        """Copy pool rows ``idxs`` to host memory: one gather per leaf,
+        then ONE device→host copy of the stacked result. Returns a tree of
+        host arrays shaped ``(len(idxs), *lead, bt, KV, D)`` (bf16 as
+        ``uint16``, see ``quant``).
+
+        With ``quant`` the gather *transcodes*: rows quantize on device
+        (per-layer-per-block f32 scales over each leaf's trailing
+        ``(bt, KV, D)`` axes) and the return value is a ``(blocks,
+        scales)`` pair of trees — only 1-byte elements plus the tiny
+        scale arrays cross the device boundary."""
+        rows = torch.tensor(idxs, dtype=torch.long, device=self.device)
+        paths = [p for p, _ in tree_paths(self.buffers)]
+        stacked = [pbuf.index_select(_row_axis(pbuf), rows)
+                   .movedim(_row_axis(pbuf), 0)
+                   for pbuf in _leaves(self.buffers)]
+        if quant is None:
+            return unflatten(dict(zip(paths, _to_host(stacked))))
+        pairs = [quantlib.quantize_blocks(b, quant) for b in stacked]
+        host = _to_host([q for q, _ in pairs] + [s for _, s in pairs])
+        n = len(pairs)
+        return (unflatten(dict(zip(paths, host[:n]))),
+                unflatten(dict(zip(paths, host[n:]))))
+
+    def write_rows(self, idxs: List[int], host_blocks,
+                   scales=None) -> None:
+        """Scatter host-side stacked block arrays (the tree ``read_rows``
+        returns) into pool rows ``idxs``: ONE host→device copy of the
+        whole batch (with ``scales``, the narrow bytes and the scales),
+        the dequantize on device when ``scales`` is given, then an
+        in-place ``index_copy_`` per leaf into the existing buffers."""
+        rows = torch.tensor(idxs, dtype=torch.long, device=self.device)
+        pbufs = _leaves(self.buffers)
+        blocks = _leaves(host_blocks)
+        if scales is None:
+            dev = _to_device(blocks, [p.dtype for p in pbufs], self.device)
+        else:
+            sc = _leaves(scales)
+            qdtypes = [quantlib.logical_dtype(b.dtype) for b in blocks]
+            dev = _to_device(blocks + sc,
+                             qdtypes + [torch.float32] * len(sc),
+                             self.device)
+            n = len(blocks)
+            dev = [quantlib.dequantize_blocks(q, s, p.dtype)
+                   for q, s, p in zip(dev[:n], dev[n:], pbufs)]
+        for pbuf, blk in zip(pbufs, dev):
+            ax = _row_axis(pbuf)
+            pbuf.index_copy_(ax, rows, blk.movedim(0, ax))

@@ -228,6 +228,87 @@ def test_launcher_gather_plane_prints_reference_metrics(capsys, arch, flags):
     assert "paged=off" in head[0] and "paged=off" in ref_head[0]
 
 
+@pytest.mark.parametrize("flags,moved", [
+    (["--host-cache-kb", "64", "--kv-quant", "int8"], None),
+    (["--host-cache-kb", "64", "--kv-quant", "int8", "--cache-kb", "1",
+      "--requests", "8"], "dequantized_promotions"),
+    (["--host-cache-kb", "64", "--disk-cache-mb", "1"], None),
+    (["--host-cache-kb", "1", "--disk-cache-mb", "1", "--cache-kb", "1",
+      "--requests", "8"], "disk_promotions"),
+    (["--arrival", "poisson", "--arrival-rate", "2", "--deadline-ms", "50",
+      "--max-queue", "4", "--retry-rejected", "1"], None),
+    (["--arrival", "poisson", "--arrival-rate", "50", "--deadline-ms", "50",
+      "--max-queue", "1", "--retry-rejected", "1", "--requests", "12",
+      "--host-cache-kb", "16", "--cache-kb", "1"], "n_retried"),
+], ids=["int8", "int8-pressure", "disk", "disk-pressure", "arrival",
+        "arrival-shed"])
+def test_launcher_tier_and_front_door_flags_print_reference_metrics(
+        capsys, flags, moved):
+    """The tier flags (``--host-cache-kb``, ``--kv-quant``,
+    ``--disk-cache-mb``) and the front door (``--arrival``,
+    ``--arrival-rate``, ``--deadline-ms``, ``--max-queue``,
+    ``--retry-rejected``) through both launchers: the same metric lines.
+    The flags as given, and again under a store of one KB, where chains
+    demote, come back from the int8 host tier and from the disk tier, and
+    a queue of one sheds arrivals that a retry takes back."""
+    (ref, ref_head), (got, head) = _launch_both(
+        capsys, ["--arch", "qwen2_7b"] + LAUNCH_ARGS + flags)
+    assert [ln.split()[0] for ln in got] == [ln.split()[0] for ln in ref]
+    assert got == ref
+    for flag in ("host_cache_kb", "kv_quant", "disk_cache_mb"):
+        assert head[0].split(flag)[1].split()[0] == \
+            ref_head[0].split(flag)[1].split()[0]
+    if moved is not None:
+        value = {ln.split()[0]: ln.split()[1] for ln in got}[moved]
+        assert float(value) > 0, (moved, value)
+
+
+BAD_FLAG_COMBOS = [
+    ["--disk-cache-mb", "16"],                  # disk rung without host tier
+    ["--disk-dir", "/tmp/nope"],                # dir without a disk tier
+    ["--kv-quant", "int8"],                     # transcode without a tier
+    ["--prefill-budget", "16"],                 # budget without the scheduler
+    ["--fault-seed", "3"],                      # seed without a plan
+    ["--fault-plan", "/nonexistent/plan.json"],  # unreadable plan
+]
+
+
+@pytest.mark.parametrize("extra", BAD_FLAG_COMBOS,
+                         ids=[" ".join(c) for c in BAD_FLAG_COMBOS])
+def test_launch_rejects_bad_flag_combos(extra):
+    """``tests/test_faults.py``'s combinations bar ``--tp`` (not ported):
+    validation runs before any device or model is touched, so a bad combo
+    exits 2 at once, here without ``--device cpu`` too."""
+    argv = ["--arch", "qwen2_7b", "--smoke", "--requests", "2",
+            "--slots", "1", "--max-seq", "32", "--cache-kb", "64",
+            "--max-new", "2", "--policy", "lerc"] + extra
+    with pytest.raises(SystemExit) as exc:
+        serve_main(argv)
+    assert exc.value.code == 2
+
+
+def test_launch_refuses_a_shard_crash(tmp_path, capsys):
+    """A fault plan that crashes a shard is refused: the port's launcher
+    runs one engine, with no shard to crash (``--shards`` is not ported);
+    a plan of disk faults alone is taken."""
+    plan = tmp_path / "plan.json"
+    plan.write_text('{"seed": 7, "shard_crashes": [[4.0, 0]]}')
+    argv = ["--arch", "qwen2_7b", "--smoke", "--fault-plan", str(plan)]
+    with pytest.raises(SystemExit) as exc:
+        serve_main(argv)
+    assert exc.value.code == 2
+    assert "no shard to crash" in capsys.readouterr().err
+    plan.write_text('{"seed": 7, "disk_read_error_p": 1.0, '
+                    '"quarantine_after": 1}')
+    assert serve_main(argv + LAUNCH_ARGS[1:] + [
+        "--device", "cpu", "--host-cache-kb", "1", "--disk-cache-mb", "1",
+        "--cache-kb", "1", "--requests", "8"]) == 0
+    lines = {ln.split()[0]: ln.split()[1]
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("  ")}
+    assert int(lines["disk_quarantines"]) == 1
+
+
 def test_scheduled_fcfs_matches_reference_run_loop(model):
     """The front door on the port's engine: driven through ``play_trace``
     under an explicit FCFS scheduler (all arrivals at t=0), it must give

@@ -60,6 +60,8 @@ COPIES = [
     "core/block_store.py", "core/coordination.py", "faults.py",
     "data/pipeline.py", "sim/workloads.py", "sim/cluster.py",
     "sim/__init__.py", "serve/reference.py",
+    # the tier ladder's framework-free modules
+    "serve/disk_pool.py", "serve/tiered.py",
 ]
 
 REF = SimpleNamespace(core=repro.core, coordination=repro.core.coordination,
