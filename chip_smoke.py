@@ -31,8 +31,8 @@ exits non-zero:
              against a plain loop over the chunks).
 4. parity  — the serve engine on the card (kernels, captured steps)
              against the same engine on the CPU (plain versions, eager),
-             smoke configs in f32: the paged plane on qwen2, the gather
-             plane on gemma2 and qwen2.
+             smoke configs in f32: the paged plane on qwen2, moonshot and
+             llama4 (MoE), the gather plane on gemma2 and qwen2.
 5. serve   — the paged path: full-width qwen2-7b (28 layers, seeded
              random weights, bf16) served through ``ServeEngine(paged=
              True)`` under a LERC prefix cache with byte pressure, each
@@ -73,7 +73,31 @@ exits non-zero:
              through the plain attention and one through K2 with the
              rolling window wrapped, ``steady_decode``, and a short
              profiled run.
-7. train   — parity first: the four smoke configs in f32 trained 3
+7. recurrent_decode — R and W layers through ``decode_step`` at full
+             width and depth, bf16, seeded random weights: recurrentgemma-9b
+             (38 layers; every L layer's attention a K2 launch, 12 a step)
+             and rwkv6-3b (32 W layers, the reference's plain one-step
+             update), 8 rows, a 64-token prompt a token a step and 32
+             greedy tokens: ms a step, tokens/s, the cache's dtypes (``S``
+             and ``h`` fp32), a profiled window; recurrentgemma's step at
+             pos 2100 (window wrapped) with each L layer's K2 output held
+             to its plain version; then both smoke configs in f32, the
+             card against the CPU (identical tokens) and against its own
+             ``forward``.
+8. moe_serve — M layers on the paged plane: full-width, full-depth
+             moonshot-v1-16b-a3b (48 M layers, 57.1 GB) under the qwen2
+             cell's traffic, captured and eager (identical tokens,
+             eviction log and metrics, 48 K1 launches a step),
+             ``steady_decode``, a profiled run and the MoE layer's router,
+             expert, one-hot and shared-expert times; then
+             llama4-maverick at full width cut to one GM unit (2 layers,
+             35.3 GB), captured and eager.
+9. legacy_serve — ``LegacyServeEngine`` (token at a time, host KV
+             round-trips, eager) beside ``ServeEngine(paged=False,
+             prefill_chunk=1)`` on full-width qwen2-7b cut to 4 layers: the
+             same tokens, eviction log and steps, 4 K2 launches a step in
+             each.
+10. train  — parity first: the four smoke configs in f32 trained 3
              steps on the card (K3, K5, K4) and on the CPU (plain routes)
              from the same weights and batches. Then the training path at full
              width: recurrentgemma-9b cut to 5 layers (one RRL unit and
@@ -82,13 +106,13 @@ exits non-zero:
              K3 and K5 launch counted; each layer's K3 and K5 outputs
              held to their plain versions at a step's inputs; a profiled
              step.
-8. train   — rwkv6-3b at full width and full depth (32 W layers, bf16,
+11. train  — rwkv6-3b at full width and full depth (32 W layers, bf16,
              seeded random weights), 4 AdamW steps at batch 2 x 4096,
              every K4 launch counted (64 a step: 32 forward and 32
              checkpoint recomputes); each layer's K4 output held to its
              plain version; a profiled step; four more steps, the
              backward's state carry two ways (A B B A).
-9. train_resume — rwkv6-3b at full width cut to 4 layers (bf16, seeded
+12. train_resume — rwkv6-3b at full width cut to 4 layers (bf16, seeded
              random weights, batch 2 x 4096) fed by the port's LERC
              ``Executor`` (token and label blocks zipped into peer pairs,
              a cache of 6 token blocks spilling to disk): 6 steps twice
@@ -101,7 +125,9 @@ exits non-zero:
              launcher on the rwkv6 smoke config with ``--ckpt-dir``: run
              through, and preempted by SIGTERM at step 3 and resumed with
              ``--resume``; the two step-6 checkpoints equal byte for byte.
-10. the kernels line, the card line, and the result line.
+13. the kernels line (K1's and K2's launches on each of their paths
+             under ``launches_by_path``), the card line, and the result
+             line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails. In the kernels
@@ -158,14 +184,16 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  rglru_scan_reverse, rwkv6_wkv,
                                  rwkv6_wkv_chunked, rwkv6_wkv_forward,
                                  rwkv6_wkv_plain)
-from repro_torch.models import (init_decode_cache,  # noqa: E402
-                                init_params, lm_decode_step, loss_fn,
-                                model_spec, tree_paths)
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_decode_cache, init_params,
+                                lm_decode_step, loss_fn, model_spec,
+                                tree_paths)
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
-from repro_torch.serve import (PrefixStore, ServeEngine,  # noqa: E402
-                               TieredKVStore)
+from repro_torch.serve import (LegacyServeEngine,  # noqa: E402
+                               PrefixStore, ServeEngine, TieredKVStore)
 from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
                                TrainConfig, adamw_init, build_train_step,
                                latest, load, make_train_state)
@@ -229,6 +257,12 @@ DECODE_EDGE_CASES = [
     (8, 4096, 32, 16, 128, None, 50.0, [4096] * 8),
     (4, 2048, 32, 4, 128, None, 30.0, [2048, 1000, 1, 0]),
 ]
+# K2 at recurrentgemma-9b's L-layer decode: G=16 heads a KV head at D=256
+# (the kernel's NC=2, GB=4 instance, four row groups a KV head) over the
+# 2048-slot rolling window, rows full, ragged and wrapped (2048 valid past
+# the window)
+RG_DECODE = dict(B=8, S=2048, H=16, KV=1, D=256,
+                 valid=[2048, 1000, 1, 2048, 517, 2048, 33, 1500])
 # f32: kernel and plain version both sum in fp32, in different orders
 F32_ATOL = 1e-4
 # bf16: both round an fp32 result below 2 in magnitude to bf16 (one ulp
@@ -571,10 +605,33 @@ def decode_kernel_phase(dev) -> dict:
              shape={"B": 8, "S": S, "H": 32, "KV": 16, "D": 128,
                     "softcap": 50.0}, valid_len=valid, max_abs_err=err,
              atol=BF16_ATOL, **timings[S])
+    c = RG_DECODE
+    args = decode_inputs(c["B"], c["S"], c["H"], c["KV"], c["D"], c["valid"],
+                         torch.bfloat16, dev, seed=c["S"] + 1)
+    got = decode_attention(*args)
+    want = decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_ATOL, ("recurrentgemma_L", err)
+    errs["bf16_recurrentgemma_L"] = err
+    bound_ms, bound_by = decode_bound(args[0], args[1], args[3])
+    rg = {"kernel_ms": time_ms(lambda: decode_attention(*args), 50, flush),
+          "plain_ms": time_ms(lambda: decode_attention_plain(*args), 10,
+                              flush),
+          "library_ms": time_ms(sdpa_decode_call(*args), 50, flush),
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "kernel_host_ms": host_ms(lambda: decode_attention(*args), 50),
+          "split_plan": decode_attention_mod._plan(
+              c["B"], c["S"], c["H"], c["KV"], c["D"], -1, torch.bfloat16,
+              dev.index or 0)}
+    emit("kernel", name="decode_attention", dtype="bfloat16",
+         shape={k: c[k] for k in ("B", "S", "H", "KV", "D")},
+         what="recurrentgemma-9b L-layer decode, G=16 at D=256",
+         valid_len=c["valid"], max_abs_err=err, atol=BF16_ATOL, **rg)
     emit("kernel_check", name="decode_attention", max_abs_err=errs,
          f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
     return {"max_abs_err": max(errs.values()), **timings[128],
-            "S4096": timings[4096]}
+            "S4096": timings[4096], "recurrentgemma_L": rg}
 
 
 def flash_bound(q, k, window):
@@ -1151,13 +1208,16 @@ def parity_phase(dev) -> None:
     """Smoke configs in f32: the engine on the card (kernels) gives the CPU
     engine's (plain versions') tokens, eviction log and metrics — the
     paged plane on qwen2, the gather plane on gemma2 (rolling-window
-    layers, chunk 1) and on qwen2 (chunk 8)."""
+    layers, chunk 1) and on qwen2 (chunk 8), and the paged plane on the
+    MoE configs (moonshot: every layer M; llama4: G and M alternating)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for arch, paged, chunk, kernel in (
             ("qwen2_7b", True, 8, paged_decode_attention),
             ("gemma2_27b", False, 1, decode_attention),
-            ("qwen2_7b", False, 8, decode_attention)):
+            ("qwen2_7b", False, 8, decode_attention),
+            ("moonshot_v1_16b_a3b", True, 8, paged_decode_attention),
+            ("llama4_maverick_400b_a17b", True, 8, paged_decode_attention)):
         cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
         params = init_params(model_spec(cfg),
                              torch.Generator().manual_seed(0), "cpu",
@@ -1837,6 +1897,428 @@ def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
          top_kernels=[[n[:80], t] for n, t in top])
 
 
+# ------------------------------------------------------ recurrent decode
+
+
+def greedy_decode(cfg, params, dev, prompt, new, max_seq):
+    """``decode_step`` one token a step with a scalar position: the (B, P)
+    ``prompt`` (a host tensor) fed a column a step, then ``new`` greedy
+    tokens. Returns (every step's logits, fp32 (B, P + new, V) on the
+    host; the greedy tokens (B, new); the cache; prompt and greedy ms a
+    step)."""
+    B, P = prompt.shape
+    prompt = prompt.to(dev)
+    cache = init_decode_cache(cfg, B, max_seq, device=dev)
+    logits, toks = [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(P):
+            lg, _ = decode_step(cfg, params, cache, prompt[:, pos:pos + 1],
+                                pos)
+            logits.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(new):
+            tok = logits[-1].argmax(-1, keepdim=True).int()
+            toks.append(tok)
+            lg, _ = decode_step(cfg, params, cache, tok, P + i)
+            logits.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (torch.stack(logits, 1).cpu(), torch.cat(toks, 1).cpu(), cache,
+            (t1 - t0) * 1e3 / P, (t2 - t1) * 1e3 / max(new, 1))
+
+
+def recurrent_decode_phase(dev) -> int:
+    """R and W layers decoding through ``decode_step`` at full width and
+    depth: recurrentgemma-9b (38 layers: every L layer's attention a K2
+    launch, 12 a step) and rwkv6-3b (32 W layers, no kernel: the W step is
+    the reference's plain update), bf16, seeded random weights, B=8, a
+    64-token prompt a token a step, then 32 greedy tokens; recurrentgemma's
+    wrapped-window step held per layer to the plain version; then both
+    smoke configs in f32 on the card against the CPU and against the
+    card's own forward. Returns K2's launches in recurrentgemma's run."""
+    B, P, new = 8, 64, 32
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 65_536, (B, P)).astype(np.int32))
+    k2 = 0
+    for arch, max_seq, expect in (("recurrentgemma_9b", 4096,
+                                   {"decode_attention": 12}),
+                                  ("rwkv6_3b", 128, {})):
+        cfg = configs.get(arch)
+        t0 = time.time()
+        params = init_params(model_spec(cfg), torch.Generator(
+            device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        greedy_decode(cfg, params, dev, prompt[:, :2], 1, max_seq)  # warm-up
+        (logits, toks, cache, prompt_ms, greedy_ms), counts = counted(
+            lambda: greedy_decode(cfg, params, dev, prompt, new, max_seq))
+        steps = P + new
+        for name, n in counts.items():
+            assert n == expect.get(name, 0) * steps, (arch, counts)
+        assert torch.isfinite(logits).all()
+        assert ((0 <= toks) & (toks < cfg.vocab)).all()
+        dtypes = {"/".join(path): str(t.dtype).split(".")[-1]
+                  for path, t in tree_paths(cache)
+                  if path[0] in ("stack", "tail_0_R")}
+        # where a step's time goes: 9 steps under torch.profiler
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            greedy_decode(cfg, params, dev, prompt[:, :1], 8, max_seq)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = device_ms_by_kernel(prof)
+        busy = sum(by_name.values())
+        for path, t in tree_paths(cache):
+            want = (torch.float32 if path[-1] in ("S", "h")
+                    else torch.bfloat16)
+            assert t.dtype == want, (path, t.dtype)
+        emit("recurrent_decode", config=f"{arch} full width and depth, "
+             f"{cfg.n_layers} layers ({cfg.layer_pattern}), bf16, random "
+             "weights (seed 0)", batch=B, prompt_tokens=P, new_tokens=new,
+             init_s=init_s, prompt_ms_per_step=prompt_ms,
+             greedy_ms_per_step=greedy_ms,
+             tokens_per_s=B * 1e3 / greedy_ms, kernel_launches=counts,
+             expected_launches_per_step=expect, cache_dtypes=dtypes,
+             first_tokens=toks[:2, :8].tolist(), profiled_steps=9,
+             profiled_wall_ms=wall_ms, device_busy_ms=busy,
+             device_idle_share=(1 - busy / wall_ms if busy else
+                                "not measured: the profiler recorded no "
+                                "device activity"),
+             gemm_ms=sum(t for n, t in by_name.items()
+                         if any(g in n.lower() for g in GEMM_NAMES)),
+             top_kernels=[[n[:80], t] for n, t in sorted(
+                 by_name.items(), key=lambda kv: -kv[1])[:5]])
+        if arch == "recurrentgemma_9b":
+            k2 = counts["decode_attention"]
+            recurrent_wrapped_step(cfg, params, dev)
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    recurrent_parity(dev)
+    return k2
+
+
+def recurrent_wrapped_step(cfg, params, dev) -> None:
+    """One recurrentgemma-9b decode step at pos 2100, past its 2048-slot
+    window (every L layer writes slot 52 and sees all 2048), from a cache
+    of seeded values, B=8: each L layer's K2 output against its plain
+    version on the same inputs (the plain output carried on), within one
+    bf16 ulp of the layer's scale; then the whole step through K2 and
+    through the plain version: finite logits, their distance and argmax
+    agreement printed."""
+    B, pos = 8, 2100
+    cache = init_decode_cache(cfg, B, 4096, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _, t in tree_paths(cache):
+        t.normal_(generator=g)
+    toks = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    layer_errs = []
+
+    def kernel_and_plain(q, k, v, valid, softcap=None):
+        assert k.shape[1] == cfg.window and (valid == cfg.window).all()
+        want = decode_attention_plain(q, k, v, valid, None, softcap)
+        got = decode_attention(q, k, v, valid, softcap=softcap)
+        layer_errs.append(((got.float() - want.float()).abs().max().item(),
+                           want.float().abs().max().item()))
+        return want
+
+    def step(impl, attend=None):
+        c = tree_map(torch.clone, cache)
+        wrapper = model_layers.decode_attention
+        if attend is not None:
+            model_layers.decode_attention = attend
+        try:
+            with torch.no_grad():
+                out, _ = decode_step(cfg.replace(decode_kernel=impl), params,
+                                     c, toks, pos)
+        finally:
+            model_layers.decode_attention = wrapper
+        torch.cuda.synchronize()
+        return out[:, 0].float()
+
+    step("flash", attend=kernel_and_plain)
+    assert len(layer_errs) == 12, layer_errs       # one L layer a unit
+    worst = max(e / s for e, s in layer_errs)
+    assert worst <= 2 ** -7, layer_errs            # one bf16 ulp
+    plain, kern = step("xla"), step("flash")
+    assert torch.isfinite(kern).all() and torch.isfinite(plain).all()
+    emit("decode_step", what=f"recurrentgemma-9b decode_step, "
+         f"{cfg.n_layers} layers, plain version vs K2, bf16, B=8, pos "
+         f"{pos} (window {cfg.window} wrapped)",
+         per_layer_max_err_over_scale=worst,
+         per_layer_errs=[[e, sc] for e, sc in layer_errs],
+         max_abs_err=(kern - plain).abs().max().item(),
+         logits_scale=plain.abs().max().item(),
+         argmax_agreement=(kern.argmax(-1) == plain.argmax(-1))
+         .float().mean().item())
+
+
+def recurrent_parity(dev) -> None:
+    """The recurrentgemma and rwkv6 smoke configs in f32, 4 prompt tokens
+    and 12 greedy ones through ``decode_step`` on the card (K2 for the L
+    layers) and on the CPU from the same weights: identical tokens, logits
+    within ``LOGITS_RTOL`` of their scale; and the card's incremental
+    logits against its own ``forward`` on the same tokens, within the
+    reference's ``test_decode_matches_forward`` bar (0.15)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("recurrentgemma_9b", "rwkv6_3b"):
+        cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
+        params = init_params(model_spec(cfg),
+                             torch.Generator().manual_seed(0), "cpu",
+                             dtype=torch.float32)
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 4)).astype(np.int32))
+        cpu = greedy_decode(cfg, params, "cpu", prompt, 12, 32)
+        card_params = tree_map(lambda t: t.to(dev), params)
+        card, counts = counted(lambda: greedy_decode(
+            cfg, card_params, dev, prompt, 12, 32))
+        if "L" in cfg.layer_pattern:
+            assert counts["decode_attention"] > 0, counts
+        assert torch.equal(card[1], cpu[1]), (card[1], cpu[1])
+        err = (card[0] - cpu[0]).abs().max().item()
+        scale = cpu[0].abs().max().item()
+        assert err <= LOGITS_RTOL * scale, (arch, err, scale)
+        fed = torch.cat([prompt, card[1]], 1).to(dev)
+        with torch.no_grad():
+            full = forward(cfg, card_params, {"tokens": fed}).float().cpu()
+        inc_err = (full - card[0]).abs().max().item()
+        assert inc_err < 0.15, (arch, inc_err)
+        emit("recurrent_parity", config=f"{arch} smoke f32", new_tokens=12,
+             tokens_identical=True, max_abs_err=err, logits_scale=scale,
+             rtol=LOGITS_RTOL, incremental_vs_forward_max_abs_err=inc_err,
+             kernel_launches=counts)
+
+
+# ------------------------------------------------------------ MoE serve
+
+
+def moe_layer_timings(cfg, params, dev) -> dict:
+    """The first M layer's MoE alone, bf16, at the serve path's token
+    counts (8: steady decode; 512: a prefill chunk of 64 in 8 slots):
+    device ms of the router (fp32 product, softmax, stable sort), the
+    expert products (every expert on every token, the reference's
+    single-device design), the one-hot combine, the shared experts, and the
+    whole layer, beside the bytes bound of its weights and, at 512 tokens,
+    the operations bound."""
+    prm = {k: v[0] for k, v in params["stack"]["0_M"]["moe"].items()}
+    E, d = cfg.n_experts, cfg.d_model
+    wbytes = sum(t.numel() * t.element_size() for t in prm.values())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"weight_bytes": wbytes}
+    for T in (8, 512):
+        x = torch.randn((T, d), generator=torch.Generator(
+            device=dev).manual_seed(T), device=dev).to(cfg.dtype)
+        topw, topi = model_moe._route(cfg, prm["router"], x)
+        wi = prm["wi"]
+
+        def experts():
+            h = torch.matmul(x, wi.reshape(E, d, -1)).reshape(
+                E, T, wi.shape[2], wi.shape[3])
+            return torch.bmm(model_moe._act(cfg, h), prm["wo"])
+        y = experts()
+
+        def combine():
+            onehot = (topi[..., None] == torch.arange(E, device=dev)).to(
+                x.dtype)
+            w = torch.einsum("tk,tke->te", topw.to(x.dtype), onehot)
+            return torch.einsum("etd,te->td", y, w)
+        flops = 2 * T * sum(t.numel() for n, t in prm.items()
+                            if n != "router")
+        out[f"T{T}"] = {
+            "route_ms": time_ms(lambda: model_moe._route(
+                cfg, prm["router"], x), 20, flush),
+            "experts_ms": time_ms(experts, 20, flush),
+            "onehot_combine_ms": time_ms(combine, 20, flush),
+            "shared_ms": time_ms(lambda: model_moe._shared(cfg, prm, x), 20,
+                                 flush),
+            "layer_ms": time_ms(lambda: model_moe._moe_local(cfg, prm, x),
+                                20, flush),
+            "bytes_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": flops / PEAK_OPS_PER_S[cfg.dtype] * 1e3}
+    return out
+
+
+def moe_serve_phase(dev) -> dict:
+    """M layers on the paged plane at full width: moonshot-v1-16b-a3b (48
+    M layers, 57.1 GB) under the qwen2 paged cell's traffic, captured and
+    eager, steady decode, a profiled run and the MoE layer's timings; then
+    llama4-maverick's GM unit (2 layers at full width). Returns K1's
+    launches in each run: the wrappers' and the device's."""
+    cfg = configs.get("moonshot_v1_16b_a3b")           # full width, bf16
+    t0 = time.time()
+    params = init_params(model_spec(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_paths(params))
+    kw = dict(bt=16, slots=8, max_seq=640, chunk=64, max_new=32, paged=True)
+    run_engine(cfg, params, dev, shared_prefix_prompts(
+        cfg.vocab, 2, 1, 64, 16, seed=1), cap_blocks=96,
+        **{**kw, "max_new": 2})                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts = shared_prefix_prompts(cfg.vocab, 16, 4, 512, 64, seed=0)
+    (eng, store, reqs), run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", None,
+        cap_blocks=96, **kw)
+    peak = torch.cuda.max_memory_allocated(dev)
+    eager, eager_run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", False,
+        cap_blocks=96, **kw)
+    assert_same_run((eng, store, reqs), eager)
+    del eager
+    m = eng.metrics()
+    tokens = [t for r in reqs for t in r.generated]
+    assert m["evictions"] > 0 and m["effective_hits"] > 0, m
+    assert len(tokens) == 16 * kw["max_new"]
+    assert all(0 <= t < cfg.vocab for t in tokens)
+    emit("serve", config="moonshot_v1_16b_a3b full width and depth, 48 M "
+         "layers (64 experts top-6 + 2 shared), bf16, random weights (seed "
+         "0), paged plane", requests=len(prompts), engine_steps=eng.steps,
+         kernel_launches=run["kernel_launches"],
+         generated_tokens=len(tokens), tokens_per_s=len(tokens)
+         / run["wall_s"], wall_s=run["wall_s"], init_s=init_s,
+         param_bytes=param_bytes, block_nbytes=eng.pool.block_nbytes,
+         evictions=m["evictions"], effective_hits=m["effective_hits"],
+         hits=m["hits"], accesses=m["accesses"],
+         prefill_tokens=m["prefill_tokens"],
+         prefill_tokens_skipped=m["prefill_tokens_skipped"],
+         max_memory_allocated=peak, captured=run, eager=eager_run,
+         eager_identical=True)
+    del eng, store, reqs
+    launches = {"moonshot": (run["kernel_launches"]["paged_decode_attention"],
+                             run["device_launches"])}
+    steady_decode(cfg, params, dev, paged=True, chunk=64, prompt=64,
+                  max_seq=kw["max_seq"])
+    profile_serve(cfg, params, dev, shared_prefix_prompts(
+        cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
+        "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
+        "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
+    emit("moe_layer", config=cfg.arch, **moe_layer_timings(cfg, params, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("llama4_maverick_400b_a17b").replace(n_layers=2)
+    t0 = time.time()
+    params = init_params(model_spec(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_paths(params))
+    kw = dict(bt=16, slots=4, max_seq=128, chunk=64, max_new=16, paged=True)
+    prompts = shared_prefix_prompts(cfg.vocab, 4, 2, 48, 16, seed=0)
+    run_engine(cfg, params, dev, prompts[:1], cap_blocks=64,
+               **{**kw, "max_new": 2})                 # warm-up
+    (eng, store, reqs), run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", None,
+        cap_blocks=64, **kw)
+    eager, eager_run = timed_serve(
+        cfg, params, dev, prompts, "paged_decode_attention", False,
+        cap_blocks=64, **kw)
+    assert_same_run((eng, store, reqs), eager)
+    tokens = [t for r in reqs for t in r.generated]
+    assert len(tokens) == 4 * kw["max_new"]
+    assert all(0 <= t < cfg.vocab for t in tokens)
+    emit("serve", config="llama4_maverick_400b_a17b full width, 2 of 48 "
+         "layers (one GM unit: G with dense d_ff 16384, M with 128 experts "
+         "top-1 + 1 shared), bf16, random weights (seed 0), paged plane",
+         requests=len(prompts), engine_steps=eng.steps,
+         kernel_launches=run["kernel_launches"],
+         generated_tokens=len(tokens),
+         tokens_per_s=len(tokens) / run["wall_s"], wall_s=run["wall_s"],
+         init_s=init_s, param_bytes=param_bytes, captured=run,
+         eager=eager_run, eager_identical=True)
+    launches["llama4_GM"] = (run["kernel_launches"]["paged_decode_attention"],
+                             run["device_launches"])
+    del eng, store, reqs, eager, params
+    return launches
+
+
+# ---------------------------------------------------------- legacy serve
+
+
+def first_difference(a, b):
+    """(index, a's entry, b's entry) where two sequences first differ."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x, y
+    return min(len(a), len(b)), a[len(b):len(b) + 1], b[len(a):len(a) + 1]
+
+
+def legacy_serve_phase(dev) -> int:
+    """The frozen token-at-a-time baseline beside the gather engine at
+    chunk 1: full-width qwen2-7b cut to 4 layers, bf16, seeded random
+    weights, 8 requests (64 shared + 16 unique tokens, 2 families), 16 new
+    tokens, 2 slots, under the same store of 8 blocks (the working set is
+    16). ``LegacyServeEngine`` (eager, host KV round-trips) and
+    ``ServeEngine(paged=False, prefill_chunk=1)`` (captured) must give the
+    same tokens, eviction log and steps, with 4 K2 launches a step in each.
+    Returns K2's launches in the legacy run."""
+    cfg = configs.get("qwen2_7b").replace(n_layers=4)
+    params = init_params(model_spec(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    kw = dict(bt=16, slots=2, max_seq=128, chunk=1, max_new=16, paged=False)
+    prompts = shared_prefix_prompts(cfg.vocab, 8, 2, 64, 16, seed=0)
+    probe = ServeEngine(cfg, params, max_slots=1, max_seq=16,
+                        store=PrefixStore(1 << 40, "lerc", block_tokens=16),
+                        pool_blocks=1, paged=False, device=dev,
+                        cuda_graphs=False)
+    cap = 8 * probe._block_nbytes()
+    del probe
+
+    def legacy_run(prompts, max_new):
+        eng = LegacyServeEngine(cfg, params, max_slots=2, max_seq=128,
+                                store=PrefixStore(cap, "lerc",
+                                                  block_tokens=16),
+                                device=dev)
+        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        t0 = time.time()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.time() - t0
+    legacy_run(prompts[:1], 2)                         # warm-up
+    (leg, lreqs, lwall), counts = counted(lambda: legacy_run(prompts, 16))
+    assert counts["decode_attention"] == cfg.n_layers * leg.steps, \
+        (counts, leg.steps)
+    (eng, store, reqs), run = timed_serve(
+        cfg, params, dev, prompts, "decode_attention", None, cap_blocks=8,
+        **kw)
+    assert store.capacity == leg.store.capacity
+    gen, lgen = [r.generated for r in reqs], [r.generated for r in lreqs]
+    same = {"tokens": gen == lgen,
+            "eviction_log": store.eviction_log == leg.store.eviction_log,
+            "steps": eng.steps == leg.steps}
+    emit("legacy_serve", config="qwen2_7b full width, 4 of 28 layers, bf16, "
+         "random weights (seed 0)", requests=len(prompts), slots=2,
+         legacy={"wall_s": lwall, "engine_steps": leg.steps,
+                 "tokens_per_s": sum(map(len, lgen)) / lwall,
+                 "decode_attention_launches": counts["decode_attention"],
+                 "evictions": leg.store.evictions,
+                 "prefill_tokens_skipped": leg.prefill_tokens_skipped},
+         gather_engine={"wall_s": run["wall_s"], "engine_steps": eng.steps,
+                        "tokens_per_s": run["tokens_per_s"],
+                        "decode_attention_launches": run["device_launches"],
+                        "steps_replayed": run["steps_replayed"],
+                        "evictions": store.evictions,
+                        "prefill_tokens_skipped": eng.prefill_tokens_skipped},
+         identical=same,
+         first_token_difference=None if same["tokens"] else first_difference(
+             [t for g in gen for t in g], [t for g in lgen for t in g]),
+         first_eviction_difference=None if same["eviction_log"] else
+         first_difference(store.eviction_log, leg.store.eviction_log))
+    assert leg.store.evictions > 0
+    assert all(same.values()), same
+    return counts["decode_attention"]
+
+
 # --------------------------------------------------------------- train
 
 
@@ -2317,7 +2799,16 @@ def main() -> int:
     torch.cuda.empty_cache()       # the qwen2 weights go before gemma2's
     k2_launches, k2_runs = gather_serve_phase(dev)
     gc.collect()
-    torch.cuda.empty_cache()       # gemma2's 54.5 GB go before training
+    torch.cuda.empty_cache()       # gemma2's 54.5 GB go before the next
+    k2_recurrent = recurrent_decode_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_moe = moe_serve_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()       # llama4's 35.3 GB go before qwen2's
+    k2_legacy = legacy_serve_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = train_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # recurrentgemma's state goes before rwkv6's
@@ -2333,14 +2824,24 @@ def main() -> int:
                     kernel_ms=k1["kernel_ms"], shape="B=8 S=1 H=28 KV=4 "
                     "D=128 bt=16 NW=64, bf16", design=k1["design"],
                     device_launches=k1_runs,
-                    kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"])
+                    kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"],
+                    launches_by_path={
+                        "qwen2_7b_paged_serve": [k1_launches, k1_runs],
+                        "moonshot_v1_16b_a3b_paged_serve": k1_moe["moonshot"],
+                        "llama4_maverick_GM_paged_serve":
+                            k1_moe["llama4_GM"]})
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
                             k2_launches, k2)
     k2_entry.update(tpu_kernel="src/repro/kernels/decode_attention.py:"
                     "_decode_kernel", shape="B=8 H=32 KV=16 D=128 S=128 "
                     "ragged, bf16", S4096=k2["S4096"],
-                    device_launches=k2_runs)
+                    recurrentgemma_L=k2["recurrentgemma_L"],
+                    device_launches=k2_runs,
+                    launches_by_path={
+                        "gemma2_27b_gather_serve": [k2_launches, k2_runs],
+                        "recurrentgemma_9b_decode_step": k2_recurrent,
+                        "qwen2_7b_4_layers_legacy_serve": k2_legacy})
     k3_entry = kernel_entry("flash_attention",
                             "src/repro/kernels/flash_attention.py:35",
                             train_launches["flash_attention"], k3)

@@ -149,6 +149,10 @@ def unflatten(flat):
     return tree
 
 
+# the most elements ``init_params`` draws at once (8 GiB of fp32)
+_MAX_DRAW = 1 << 31
+
+
 def init_params(spec_tree, generator: torch.Generator,
                 device: torch.device | str, dtype=torch.bfloat16):
     """Seeded random init on ``device`` following ``ParamSpec.init``:
@@ -159,7 +163,17 @@ def init_params(spec_tree, generator: torch.Generator,
     weights over with ``params_from_numpy`` instead.
 
     Normal leaves are drawn in fp32 one leading-axis slice at a time, so a
-    layer-stacked leaf never holds a full fp32 copy on the device."""
+    layer-stacked leaf never holds a full fp32 copy on the device; a slice
+    of more than ``_MAX_DRAW`` elements (a layer's stacked experts) is
+    drawn one slice of its own leading axis at a time in turn."""
+    def fill(t, std):
+        if t.ndim >= 2 and t.numel() > _MAX_DRAW:
+            for sl in t.unbind(0):
+                fill(sl, std)
+            return
+        t.copy_(torch.randn(t.shape, generator=generator,
+                            dtype=torch.float32, device=device) * std)
+
     def leaf(s: ParamSpec):
         d = s.dtype or dtype
         if s.init == "zeros":
@@ -173,8 +187,7 @@ def init_params(spec_tree, generator: torch.Generator,
             std = s.scale
         t = torch.empty(s.shape, dtype=d, device=device)
         for sl in (t.unbind(0) if t.ndim >= 3 else (t,)):
-            sl.copy_(torch.randn(sl.shape, generator=generator,
-                                 dtype=torch.float32, device=device) * std)
+            fill(sl, std)
         return t
 
     return tree_map(leaf, spec_tree)

@@ -7,12 +7,13 @@ each unit are stacked with a leading repeat axis (``params["stack"]
 explicit tail, exactly as in the reference's parameter tree. Where the
 reference scans over the repeat axis, the port loops over it.
 
-Layer kinds ported so far: G (global attention + dense MLP), L (local,
-windowed attention + dense MLP), R (RG-LRU recurrent block + dense MLP)
-and W (RWKV6 time-mix + channel-mix). The training/prefill forward
-``lm_forward`` and ``lm_loss`` run all four; the decode step runs G and L
-on both data planes: paged (G only) and gather. The M kind, and R and W
-in decode, raise ``NotImplementedError``.
+Layer kinds: G (global attention + dense MLP), L (local, windowed
+attention + dense MLP), M (global attention + MoE MLP), R (RG-LRU
+recurrent block + dense MLP) and W (RWKV6 time-mix + channel-mix). The
+training/prefill forward ``lm_forward`` and ``lm_loss`` run all five. The
+decode step runs them all one token at a time on the gather plane; chunks
+(S > 1) and the paged plane need absolute-position KV caches, G and M
+layers only, and raise elsewhere, as the reference does.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .common import ModelConfig, ParamSpec, tree_map
-from .recurrent import (rglru_block, rglru_block_spec, rwkv_channel_mix,
-                        rwkv_channel_mix_spec, rwkv_time_mix,
-                        rwkv_time_mix_spec)
+from .moe import moe, moe_spec
+from .recurrent import (rglru_block, rglru_block_spec, rglru_state_shape,
+                        rwkv_channel_mix, rwkv_channel_mix_spec,
+                        rwkv_state_shape, rwkv_time_mix, rwkv_time_mix_spec)
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -47,8 +49,8 @@ def _sublayer_spec(cfg: ModelConfig, kind: str) -> Dict:
             "ln2": L.norm_spec(cfg),
             "cm": rwkv_channel_mix_spec(cfg),
         }
-    if kind not in ("G", "L"):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    if kind not in ("G", "L", "M"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     d_ff = None
     if kind == "G" and cfg.n_experts and cfg.dense_d_ff:
         d_ff = cfg.dense_d_ff
@@ -56,8 +58,11 @@ def _sublayer_spec(cfg: ModelConfig, kind: str) -> Dict:
         "ln1": L.norm_spec(cfg),
         "attn": L.attention_spec(cfg),
         "ln2": L.norm_spec(cfg),
-        "mlp": L.mlp_spec(cfg, d_ff),
     }
+    if kind == "M":
+        spec["moe"] = moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg, d_ff)
     if cfg.post_norms:
         spec["ln1_post"] = L.norm_spec(cfg)
         spec["ln2_post"] = L.norm_spec(cfg)
@@ -104,22 +109,30 @@ def _unit_keys(pat: str) -> List[str]:
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
                     paged=None):
-    """One G, L, R or W sublayer. Without ``cache`` the training/prefill
-    form (L and R layers see ``cfg.window``); with it a G or L decode,
-    which writes the layer's cache (or pool pages) in place. Returns h."""
-    if kind in ("R", "W") and cache is not None:
-        raise NotImplementedError(
-            f"{kind} layers have no ported decode: only the training/"
-            "prefill forward runs them")
+    """One sublayer. Without ``cache`` the training/prefill form (L and R
+    layers see ``cfg.window``); with it a decode, which writes the layer's
+    cache (or pool pages) in place: G, L and M layers their KV, R and W
+    layers their recurrent state, each leaf cast to its own dtype, as the
+    reference casts the state it returns. Returns h."""
     if kind == "W":
-        tm_out, _ = rwkv_time_mix(cfg, prm["tm"], L.norm(cfg, prm["ln1"], h))
+        x = L.norm(cfg, prm["ln1"], h)
+        tm_out, tm_state = rwkv_time_mix(
+            cfg, prm["tm"], x,
+            state=None if cache is None else {"shift": cache["tm_shift"],
+                                              "S": cache["S"]})
         h = h + tm_out
-        cm_out, _ = rwkv_channel_mix(cfg, prm["cm"],
-                                     L.norm(cfg, prm["ln2"], h))
+        cm_out, cm_shift = rwkv_channel_mix(
+            cfg, prm["cm"], L.norm(cfg, prm["ln2"], h),
+            state=None if cache is None else cache["cm_shift"])
+        if cache is not None:
+            _write_state(cache, {"tm_shift": tm_state["shift"],
+                                 "S": tm_state["S"], "cm_shift": cm_shift})
         return h + cm_out
     if kind == "R":
         x = L.norm(cfg, prm["ln1"], h)
-        rec_out, _ = rglru_block(cfg, prm["rec"], x)
+        rec_out, state = rglru_block(cfg, prm["rec"], x, state=cache)
+        if cache is not None:
+            _write_state(cache, state)
         h = h + rec_out
         return h + L.mlp(cfg, prm["mlp"], L.norm(cfg, prm["ln2"], h))
     window = cfg.window if kind == "L" else None
@@ -131,10 +144,18 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
-    ff = L.mlp(cfg, prm["mlp"], L.norm(cfg, prm["ln2"], h))
+    x = L.norm(cfg, prm["ln2"], h)
+    ff = moe(cfg, prm["moe"], x) if kind == "M" else L.mlp(cfg, prm["mlp"], x)
     if cfg.post_norms:
         ff = L.norm(cfg, prm["ln2_post"], ff)
     return h + ff
+
+
+def _write_state(cache: Dict, state: Dict) -> None:
+    """A recurrent layer's new state into its cache views, in place, each
+    leaf cast to the cache leaf's dtype."""
+    for name, value in state.items():
+        cache[name].copy_(value)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +172,6 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
     inputs are kept and its inside is recomputed in the backward. The tail
     layers are not checkpointed, as in the reference."""
     pat, n_rep, tail = unit_pattern(cfg)
-    unported = set(pat + tail) - {"G", "L", "R", "W"}
-    if unported:
-        raise NotImplementedError(
-            f"the port's forward covers G, L, R and W layers; layer kinds "
-            f"{sorted(unported)} are not ported")
     h = L.embed(cfg, params["embed"], tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
@@ -189,20 +205,24 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
     """Cache layout mirroring the param stacking: stacked leading repeat
-    axis for the unit, explicit entries for the tail. G and L layers (an L
-    cache is a rolling window, ``min(window, max_seq)`` slots wide)."""
+    axis for the unit, explicit entries for the tail. G and M layers hold
+    KV at absolute positions, L layers a rolling window ``min(window,
+    max_seq)`` slots wide, R and W layers their recurrent state."""
     pat, n_rep, tail = unit_pattern(cfg)
 
     def sub_shapes(kind: str):
-        if kind == "G":
+        if kind == "G" or kind == "M":
             s = (batch, max_seq, cfg.kv_heads, cfg.d_head)
             return {"k": s, "v": s}
         if kind == "L":
             w = min(cfg.window or max_seq, max_seq)
             s = (batch, w, cfg.kv_heads, cfg.d_head)
             return {"k": s, "v": s}
-        raise NotImplementedError(
-            f"layer kind {kind!r} has no ported decode cache")
+        if kind == "R":
+            return rglru_state_shape(cfg, batch)
+        if kind == "W":
+            return rwkv_state_shape(cfg, batch)
+        raise ValueError(kind)
 
     out: Dict[str, Any] = {"stack": {}}
     for key in _unit_keys(pat):
@@ -212,6 +232,15 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
     for i, k in enumerate(tail):
         out[f"tail_{i}_{k}"] = sub_shapes(k)
     return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device: torch.device | str):
+    """The zero cache of ``cache_shapes``, every leaf in ``cfg.dtype``, as
+    the reference's ``init_cache`` makes it (``api.init_decode_cache``
+    keeps the recurrent state in fp32 instead)."""
+    return tree_map(lambda s: torch.zeros(s, dtype=cfg.dtype, device=device),
+                    cache_shapes(cfg, batch, max_seq))
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
@@ -231,17 +260,13 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ``seq_lens``): ``cache`` is the KV *pool* tree (leaves (*lead,
     num_blocks, bt, KV, D)) and row b's chunk is written into — and
     attended out of — the pool rows its block table names. Chunks (S > 1)
-    and the paged plane need absolute-position caches (G layers). Either
+    and the paged plane need absolute-position caches (G and M layers).
+    R and W layers decode one token from their recurrent state. Either
     way the cache is written in place.
 
     Returns (logits (B,1,vocab), cache)."""
     pat, n_rep, tail = unit_pattern(cfg)
     B, S = tokens.shape
-    unported = set(pat + tail) - {"G", "L"}
-    if unported:
-        raise NotImplementedError(
-            f"the port's decode covers G and L layers; layer kinds "
-            f"{sorted(unported)} are not ported")
     if S > 1 or paged_tables is not None:
         unsupported = set(pat + tail) - {"G", "M"}
         if unsupported:

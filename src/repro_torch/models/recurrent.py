@@ -1,12 +1,14 @@
 """Recurrent sequence mixers; mirrors ``src/repro/models/recurrent.py``.
 
-Ported so far: the training and prefill forward of the RG-LRU
-(Griffin/RecurrentGemma) block and of RWKV6's time-mix and channel-mix.
-The gate and projection products are plain PyTorch; the recurrences go
-through ``kernels.rglru_scan`` and ``kernels.rwkv6_wkv`` (each the CUDA
-kernel on CUDA tensors, its plain version on CPU tensors). The decode
-forms (``rglru_step``, a ``state=`` carried in) raise
-``NotImplementedError``.
+The RG-LRU (Griffin/RecurrentGemma) block and RWKV6's time-mix and
+channel-mix, each in two forms. The training and prefill form (no
+``state``) runs the gate and projection products in plain PyTorch and the
+recurrences through ``kernels.rglru_scan`` and ``kernels.rwkv6_wkv``
+(each the CUDA kernel on CUDA tensors, its plain version on CPU tensors).
+The decode form (``state=`` carried in) is the reference's one-token
+update in plain PyTorch, as the reference computes it outside any Pallas
+kernel: ``rglru_step`` and RWKV6's ``S = exp(logw)·S_prev + k vᵀ``, with
+the recurrent state (``h``, ``S``) in fp32.
 """
 from __future__ import annotations
 
@@ -50,13 +52,17 @@ def _blockdiag(x, w):
     return yb.reshape(shape)
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv over time from a zero context. x: (B,S,W);
-    w: (K,W). Returns (y, the trailing K-1 steps of context). The taps are
-    summed in the reference's order, in x's dtype."""
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv over time. x: (B,S,W); w: (K,W). ``state``:
+    (B,K-1,W) trailing context for decode (a zero context without it).
+    Returns (y, the trailing K-1 steps of context). The taps are summed in
+    the reference's order, in x's dtype."""
     K = w.shape[0]
-    pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[K - 1 - i] for i in range(K))
     return y + b, xp[:, -(K - 1):, :]
@@ -87,25 +93,35 @@ def rglru_scan(params, x):
 
 
 def rglru_step(params, x, h_prev):
-    raise NotImplementedError(
-        "RG-LRU one-step decode (R-layer serving) is not ported yet")
+    """Decode: x (B,1,W), h_prev (B,W) -> (y (B,1,W), h (B,W) fp32)."""
+    xf = x.float()
+    log_a, b_in = _rglru_coeffs(params, xf)
+    a = torch.exp(log_a)
+    h = a[:, 0] * h_prev.float() + b_in[:, 0]
+    return h[:, None, :].to(x.dtype), h
 
 
 def rglru_block(cfg: ModelConfig, params, x, *, state: Optional[Dict] = None):
     """The Griffin recurrent block: in-proj → causal conv → RG-LRU, gated.
-    x: (B,S,d). Only the training/prefill form (``state=None``) is ported.
-    Returns (out (B,S,d), {"conv": (B,K-1,W), "h": (B,W)}), the state a
-    decode would continue from."""
-    if state is not None:
-        raise NotImplementedError(
-            "the RG-LRU block's decode state is not ported yet")
+    x: (B,S,d). ``state`` = {"conv": (B,K-1,W), "h": (B,W)} for a one-token
+    decode (``rglru_step``); without it the scan over S. Returns (out
+    (B,S,d), new state: the conv context in x's dtype, ``h`` in fp32)."""
     rec = torch.einsum("bsd,dw->bsw", x, params["w_x"])
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_y"]),
                   approximate="tanh")
-    rec, new_conv = _causal_conv(rec, params["conv_w"], params["conv_b"])
-    h, h_last = rglru_scan(params, rec)
+    rec, new_conv = _causal_conv(rec, params["conv_w"], params["conv_b"],
+                                 None if state is None else state["conv"])
+    if state is None:
+        h, h_last = rglru_scan(params, rec)
+    else:
+        h, h_last = rglru_step(params, rec, state["h"])
     out = torch.einsum("bsw,wd->bsd", h * gate, params["w_out"])
     return out, {"conv": new_conv.to(x.dtype), "h": h_last}
+
+
+def rglru_state_shape(cfg: ModelConfig, batch: int):
+    W = cfg.lru_width
+    return {"conv": (batch, cfg.conv_width - 1, W), "h": (batch, W)}
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +163,12 @@ def rwkv_time_mix_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-def _shift(x):
-    """Token shift: x_{t-1}, zero before the first token."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x, state=None):
+    """Token shift: x_{t-1}, zero before the first token, or the (B,d)
+    carry-in ``state`` for decode."""
+    if state is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _rwkv_proj(cfg, params, x, xprev):
@@ -181,16 +200,26 @@ def _rwkv_out(cfg, params, wkv, g):
 
 def rwkv_time_mix(cfg: ModelConfig, params, x, *,
                   state: Optional[Dict] = None):
-    """x: (B,S,d). Only the training/prefill form (``state=None``) is
-    ported: the WKV goes through ``kernels.rwkv6_wkv`` in chunks of
-    ``_RWKV_CHUNK`` (the CUDA kernel on CUDA tensors, its plain version on
-    CPU tensors). Returns (out (B,S,d), {"shift": (B,d), "S": (B,H,N,N)
-    fp32}), the state a decode would continue from."""
-    if state is not None:
-        raise NotImplementedError(
-            "RWKV6 time-mix decode (W-layer serving) is not ported yet")
-    r, k, v, g, logw = _rwkv_proj(cfg, params, x, _shift(x))
+    """x: (B,S,d). state = {"shift": (B,d), "S": (B,H,N,N) fp32} for a
+    single-token decode, the reference's one-step update in plain PyTorch;
+    without it the training/prefill form, whose WKV goes through
+    ``kernels.rwkv6_wkv`` in chunks of ``_RWKV_CHUNK`` (the CUDA kernel on
+    CUDA tensors, its plain version on CPU tensors). Returns (out (B,S,d),
+    {"shift": (B,d), "S": (B,H,N,N) fp32})."""
+    xprev = _shift(x, None if state is None else state["shift"])
+    r, k, v, g, logw = _rwkv_proj(cfg, params, x, xprev)
     u = params["u"].float()
+    if state is not None:                      # single-token decode
+        rf, kf, vf = (t.float()[:, 0] for t in (r, k, v))
+        S_prev = state["S"]                    # (B,H,N,N) fp32
+        # out_t = r (S_prev + u ⊙ k v^T);  S = diag(w) S_prev + k v^T
+        kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
+        out = torch.einsum("bhn,bhnm->bhm", rf,
+                           S_prev + u[None, :, :, None] * kv)
+        S_new = torch.exp(logw[:, 0])[..., None] * S_prev + kv
+        wkv = out[:, None].to(x.dtype)                  # (B,1,H,N)
+        return _rwkv_out(cfg, params, wkv, g), {"shift": x[:, -1, :],
+                                                "S": S_new}
     wkv, S_last = _rwkv6_wkv_kernel(r.contiguous(), k.contiguous(),
                                     v.contiguous(), logw.contiguous(),
                                     u.contiguous(), chunk=_RWKV_CHUNK)
@@ -211,12 +240,9 @@ def rwkv_channel_mix_spec(cfg: ModelConfig) -> Dict:
 
 def rwkv_channel_mix(cfg: ModelConfig, params, x, *,
                      state: Optional[torch.Tensor] = None):
-    """RWKV6 FFN with token shift, training/prefill form. Returns (out
-    (B,S,d), the last token (B,d))."""
-    if state is not None:
-        raise NotImplementedError(
-            "RWKV6 channel-mix decode (W-layer serving) is not ported yet")
-    xprev = _shift(x)
+    """RWKV6 FFN with token shift. state: (B,d) last token (decode).
+    Returns (out (B,S,d), the last token (B,d))."""
+    xprev = _shift(x, state)
 
     def mix(mu):
         return x + (xprev - x) * mu.to(x.dtype)
@@ -227,3 +253,12 @@ def rwkv_channel_mix(cfg: ModelConfig, params, x, *,
     rx = torch.sigmoid(torch.einsum("bsd,de->bse", mix(params["mu_r"]),
                                     params["wr"]))
     return rx * vx, x[:, -1, :]
+
+
+def rwkv_state_shape(cfg: ModelConfig, batch: int):
+    H, N = rwkv_heads(cfg)
+    return {
+        "tm_shift": (batch, cfg.d_model),
+        "S": (batch, H, N, N),
+        "cm_shift": (batch, cfg.d_model),
+    }

@@ -9,11 +9,14 @@ paged KV pool, with the DAG-aware radix prefix cache (own copy of
 victims demote to page-locked host memory (optionally transcoded to
 int8/fp8 by ``repro_torch.quant``), host-pressure victims to a file-backed
 disk tier, and demoted chains promote back on reuse instead of being
-recomputed."""
+recomputed. ``LegacyServeEngine`` (mirroring ``repro.serve.legacy``) is
+the frozen token-at-a-time baseline with host KV round-trips that the
+engine is held to."""
 from .disk_pool import DiskBlockPool
 from .engine import Request, ServeEngine, resolve_device
 from .host_pool import HostBlockPool
 from .kv_pool import KVBlockPool, chain_block_nbytes
+from .legacy import LegacyServeEngine
 from .prefix_store import Node, PrefixStore
 from .reference import ReferencePrefixStore
 from .scheduler import (BudgetedScheduler, DecodeFirstScheduler,
@@ -22,8 +25,8 @@ from .scheduler import (BudgetedScheduler, DecodeFirstScheduler,
                         make_scheduler, play_trace)
 from .tiered import TieredKVStore
 
-__all__ = ["Request", "ServeEngine", "resolve_device", "KVBlockPool",
-           "chain_block_nbytes", "HostBlockPool", "DiskBlockPool", "Node",
+__all__ = ["Request", "ServeEngine", "LegacyServeEngine", "resolve_device",
+           "KVBlockPool", "chain_block_nbytes", "HostBlockPool", "DiskBlockPool", "Node",
            "PrefixStore", "ReferencePrefixStore", "TieredKVStore",
            "BudgetedScheduler", "DecodeFirstScheduler", "FCFSScheduler",
            "QueueFull", "Scheduler", "StepCostModel", "TracedRequest",

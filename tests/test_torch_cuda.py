@@ -184,7 +184,9 @@ def test_kernel_merges_many_splits(dev):
 # row groups a KV head), MQA with G=8; then the gemma2 S=4096 shape with a
 # window of the cache's width and valid lengths past S, with every row
 # seeing nothing, and with every row at S, and G=8 filling the 8-head block
-# over a split cache
+# over a split cache; then recurrentgemma-9b's L-layer decode: G=16 at
+# D=256 (four row groups a KV head) over its 2048-slot rolling window,
+# rows full, ragged and wrapped (2048 valid past the window)
 DECODE_CASES = [
     (2, 128, 4, 2, 64, None, None, [128, 121]),
     (1, 200, 8, 1, 64, None, 50.0, [200]),
@@ -204,6 +206,8 @@ DECODE_CASES = [
     (8, 4096, 32, 16, 128, None, 50.0, [0] * 8),
     (8, 4096, 32, 16, 128, None, 50.0, [4096] * 8),
     (4, 2048, 32, 4, 128, None, 30.0, [2048, 1000, 1, 0]),
+    (8, 2048, 16, 1, 256, None, None,
+     [2048, 1000, 1, 2048, 517, 2048, 33, 1500]),
 ]
 
 

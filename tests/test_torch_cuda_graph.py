@@ -1,7 +1,8 @@
 """The serve step captured into CUDA graphs on the card against the same
 engine run eagerly (``cuda_graphs=False``): smoke configs in f32 and bf16,
-the paged plane (qwen2, K1 in every step) and the gather plane (gemma2, K2
-in every step). Both engines must give identical tokens, eviction logs and
+the paged plane (qwen2, and moonshot's MoE layers with the router's
+stable-sort top-k; K1 in every step) and the gather plane (gemma2, K2 in
+every step). Both engines must give identical tokens, eviction logs and
 ``metrics()``, with EOS detection on, a cancel mid-decode, a trace
 recorder attached, and a pool that grows mid-run; each kernel must have
 been launched ``n_layers`` times a step in both, by its wrapper in the
@@ -25,6 +26,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  paged_decode_attention)
 from repro_torch.models import init_params, model_spec  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
 from repro_torch.serve import step_graph  # noqa: E402
@@ -35,7 +37,8 @@ BT = 8
 PROMPT = 32
 # (arch, paged, prefill chunk, the kernel of every step's attention)
 PLANES = [("qwen2_7b", True, 8, paged_decode_attention),
-          ("gemma2_27b", False, 1, decode_attention)]
+          ("gemma2_27b", False, 1, decode_attention),
+          ("moonshot_v1_16b_a3b", True, 8, paged_decode_attention)]
 COUNTED = (paged_decode_attention, decode_attention)
 # the device kernel that each wrapper launches once a call, by the names a
 # graph's nodes record (K1's split merge, a second kernel of some calls, is
@@ -210,3 +213,33 @@ def test_capture_meeting_a_host_sync_raises(dev, monkeypatch, arch, paged,
     prog = eng.step_program
     assert prog.captures == prog.replays == 0
     assert eng.steps == len(prog._seen) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_route_captures_and_replays(dev, dtype):
+    """The MoE layer, its router's stable descending sort included, records
+    into a CUDA graph without raising, and each replay on new inputs gives
+    the eager layer's output and top-k ids (ties included)."""
+    cfg = configs.get("moonshot_v1_16b_a3b", smoke=True).replace(dtype=dtype)
+    params = init_params(model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=dtype)
+    prm = {k: v[0] for k, v in params["stack"]["0_M"]["moe"].items()}
+    prm["router"][:, 5] = prm["router"][:, 2]         # tied experts
+    x = torch.zeros((4, 8, cfg.d_model), dtype=dtype, device=dev)
+    moe.moe(cfg, prm, x)                              # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe(cfg, prm, x)
+        _, ids = moe._route(cfg, prm["router"], x.reshape(-1, cfg.d_model))
+    g = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = moe.moe(cfg, prm, x)
+        _, want_ids = moe._route(cfg, prm["router"],
+                                 x.reshape(-1, cfg.d_model))
+        assert torch.equal(ids, want_ids)
+        assert torch.equal(out, want)

@@ -92,9 +92,12 @@ def test_last_logit_only():
 
 
 def test_unported_families_raise():
+    """The encoder-decoder family still raises; the M (MoE) layer kind,
+    which raised until it was ported, now gives the reference's logits
+    and loss (moonshot smoke, every layer M)."""
     cfg = configs.get("qwen2_7b", smoke=True)
     with pytest.raises(NotImplementedError):
         forward(cfg.replace(family="encdec"), {}, {"tokens": None})
-    with pytest.raises(NotImplementedError):
-        lm_forward(cfg.replace(layer_pattern="M"), {},
-                   torch.zeros((1, 4), dtype=torch.int32))
+    jcfg, tcfg, np_params, tparams = _model("moonshot_v1_16b_a3b")
+    assert set(tcfg.layer_pattern) == {"M"}
+    _compare(jcfg, tcfg, np_params, tparams, _batch(jcfg, 24, seed=6))

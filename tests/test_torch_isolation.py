@@ -83,7 +83,8 @@ def test_entry_points_default_to_the_gpu():
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(smoke):
     """Every architecture the port lists, field for field."""
-    assert configs.ARCH_IDS == ["gemma2_27b", "qwen2_7b",
+    assert configs.ARCH_IDS == ["gemma2_27b", "llama4_maverick_400b_a17b",
+                                "moonshot_v1_16b_a3b", "qwen2_7b",
                                 "recurrentgemma_9b", "rwkv6_3b"]
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
@@ -97,6 +98,9 @@ def test_configs_equal_reference(smoke):
     assert configs.canonical("gemma2-27b") == "gemma2_27b"
     assert configs.canonical("recurrentgemma-9b") == "recurrentgemma_9b"
     assert configs.canonical("rwkv6-3b") == "rwkv6_3b"
+    assert configs.canonical("moonshot-v1-16b-a3b") == "moonshot_v1_16b_a3b"
+    assert configs.canonical("llama4-maverick-400b-a17b") == \
+        "llama4_maverick_400b_a17b"
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -109,7 +113,9 @@ def test_param_spec_tree_equals_reference(smoke):
     """Same names, shapes, axes and init rules as the reference's tree,
     the stacked ``stack/0_G`` (and gemma2's ``stack/0_L``, ``stack/1_G``,
     recurrentgemma's ``stack/0_R``, ``stack/1_R``, ``stack/2_L`` and its
-    ``tail_*_R``, rwkv6's ``stack/0_W``) layer axes included."""
+    ``tail_*_R``, rwkv6's ``stack/0_W``, moonshot's ``stack/0_M`` and
+    llama4's ``stack/0_G``, ``stack/1_M``) layer axes included, the MoE
+    leaves (router, stacked expert and shared-expert weights) too."""
     for arch in configs.ARCH_IDS:
         ref = dict(tree_paths(jax_model_spec(jax_configs.get(arch,
                                                              smoke=smoke))))
@@ -133,3 +139,16 @@ def test_param_spec_tree_equals_reference(smoke):
         rw = shape["rwkv6_3b"]
         assert rw[("stack", "0_W", "tm", "wr")].shape == (32, 2560, 16, 160)
         assert rw[("stack", "0_W", "cm", "wk")].shape == (32, 2560, 8960)
+        ms = shape["moonshot_v1_16b_a3b"]
+        assert ms[("stack", "0_M", "moe", "router")].shape == (48, 2048, 64)
+        assert ms[("stack", "0_M", "moe", "wi")].shape == \
+            (48, 64, 2048, 2, 1408)
+        assert ms[("stack", "0_M", "moe", "shared_wi")].shape == \
+            (48, 2048, 2, 2816)
+        l4 = shape["llama4_maverick_400b_a17b"]
+        assert l4[("stack", "0_G", "mlp", "wi")].shape == \
+            (24, 5120, 2, 16384)
+        assert l4[("stack", "1_M", "moe", "wo")].shape == \
+            (24, 128, 8192, 5120)
+        assert l4[("stack", "1_M", "moe", "shared_wo")].shape == \
+            (24, 8192, 5120)

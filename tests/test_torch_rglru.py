@@ -104,6 +104,17 @@ def test_rglru_block_matches_reference():
         np.testing.assert_allclose(state[name].numpy(),
                                    np.asarray(want_state[name]), atol=2e-4,
                                    rtol=2e-4)
-    with pytest.raises(NotImplementedError):
-        TR.rglru_block(tcfg, params_from_numpy(rec), torch.from_numpy(x),
-                       state=state)
+    # the decode form (it raised until it was ported): one more token
+    # from the state each package's prefill left
+    x1 = np.random.default_rng(3).standard_normal(
+        (2, 1, jcfg.d_model)).astype(np.float32)
+    want1, want_state1 = JR.rglru_block(jcfg, rec, jnp.asarray(x1),
+                                        state=want_state)
+    got1, state1 = TR.rglru_block(tcfg, params_from_numpy(rec),
+                                  torch.from_numpy(x1), state=state)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=2e-4,
+                               rtol=2e-4)
+    for name in ("conv", "h"):
+        np.testing.assert_allclose(state1[name].numpy(),
+                                   np.asarray(want_state1[name]), atol=2e-4,
+                                   rtol=2e-4)

@@ -150,9 +150,17 @@ def test_time_mix_matches_reference():
     assert state["S"].shape == (2, 16, 4, 4)
     for name in ("shift", "S"):
         assert _rel(state[name].numpy(), want_state[name]) < 1e-5, name
-    with pytest.raises(NotImplementedError):
-        TR.rwkv_time_mix(tcfg, params_from_numpy(tm), torch.from_numpy(x),
-                         state=state)
+    # the decode form (it raised until it was ported): one more token
+    # from the state each package's prefill left
+    x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+    want1, want_state1 = JR.rwkv_time_mix(jcfg, tm, jnp.asarray(x1),
+                                          state=want_state)
+    got1, state1 = TR.rwkv_time_mix(tcfg, params_from_numpy(tm),
+                                    torch.from_numpy(x1), state=state)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=2e-4,
+                               rtol=2e-4)
+    for name in ("shift", "S"):
+        assert _rel(state1[name].numpy(), want_state1[name]) < 1e-5, name
 
 
 def test_channel_mix_matches_reference():
@@ -168,9 +176,16 @@ def test_channel_mix_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
                                rtol=2e-4)
     np.testing.assert_array_equal(shift.numpy(), np.asarray(want_shift))
-    with pytest.raises(NotImplementedError):
-        TR.rwkv_channel_mix(tcfg, params_from_numpy(cm), torch.from_numpy(x),
-                            state=shift)
+    # the decode form (it raised until it was ported): one more token
+    # after the last one each package returned
+    x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+    want1, want_shift1 = JR.rwkv_channel_mix(jcfg, cm, jnp.asarray(x1),
+                                             state=want_shift)
+    got1, shift1 = TR.rwkv_channel_mix(tcfg, params_from_numpy(cm),
+                                       torch.from_numpy(x1), state=shift)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_array_equal(shift1.numpy(), np.asarray(want_shift1))
 
 
 @pytest.mark.parametrize("B,T,H,N", [(2, 40, 16, 4), (1, 64, 16, 8)])
