@@ -17,10 +17,14 @@ exits non-zero:
              f32, each split over the block table), K2 the flash-decoding
              kernel (the reference test's cases, then the gather path's
              widths on ragged, empty, full and wrapped rows in f32 and
-             bf16), K3 the flash-attention kernel of the training forward
-             (forward and, through its autograd Function, backward, in
-             f32 and bf16; recurrentgemma's L layer and gemma2's G layer
-             at S=4096), K5 the RG-LRU
+             bf16; recurrentgemma's L-layer and whisper's self- and
+             cross-attention decode shapes), K3 the flash-attention
+             kernel of the training forward (forward and, through its
+             autograd Function, backward, in f32 and bf16, on causal,
+             windowed, bidirectional, cross-attention (Sq != Skv) and
+             prefix-LM masks; recurrentgemma's L layer and gemma2's G
+             layer at S=4096, whisper's encoder and cross-attention,
+             paligemma's prefix-LM layer), K5 the RG-LRU
              scan (forward, reverse and gradients, bit-equal, on ragged
              cases; timed at B=1 and B=2, T=4096, W=4096), K4
              the RWKV6 WKV
@@ -32,7 +36,8 @@ exits non-zero:
 4. parity  — the serve engine on the card (kernels, captured steps)
              against the same engine on the CPU (plain versions, eager),
              smoke configs in f32: the paged plane on qwen2, moonshot and
-             llama4 (MoE), the gather plane on gemma2 and qwen2.
+             llama4 (MoE) and paligemma (text-only decode), the gather
+             plane on gemma2 and qwen2.
 5. serve   — the paged path: full-width qwen2-7b (28 layers, seeded
              random weights, bf16) served through ``ServeEngine(paged=
              True)`` under a LERC prefix cache with byte pressure, each
@@ -97,6 +102,11 @@ exits non-zero:
              prefill_chunk=1)`` on full-width qwen2-7b cut to 4 layers: the
              same tokens, eviction log and steps, 4 K2 launches a step in
              each.
+    vlm_serve — paligemma-3b at full width and depth (18 layers, MQA, D
+             256, vocab 257,216, 5.0 GB) under the qwen2 paged cell's
+             traffic, as moonshot is served: captured and eager (identical
+             tokens, eviction log and metrics, 18 K1 launches a step),
+             ``steady_decode`` and a profiled run.
 10. train  — parity first: the four smoke configs in f32 trained 3
              steps on the card (K3, K5, K4) and on the CPU (plain routes)
              from the same weights and batches. Then the training path at full
@@ -125,9 +135,26 @@ exits non-zero:
              launcher on the rwkv6 smoke config with ``--ckpt-dir``: run
              through, and preempted by SIGTERM at step 3 and resumed with
              ``--resume``; the two step-6 checkpoints equal byte for byte.
-13. the kernels line (K1's and K2's launches on each of their paths
-             under ``launches_by_path``), the card line, and the result
-             line.
+    vlm_train — paligemma-3b at full width and depth, bf16, seeded random
+             weights, 4 AdamW steps at batch 4, each example 256 patch
+             embeddings (dim 1152) and 256 tokens: every attention a K3
+             launch with the prefix-LM mask (36 a step), step ms, tokens/s
+             and peak memory; the first step's loss at 2 layers by K3 and
+             by the plain route, beside a one-ulp control; each layer's K3
+             output against its plain version; a profiled step.
+    encdec — whisper-base at full width and depth (6 + 6 layers): 4 AdamW
+             steps at batch 8 (1500 frames, 448 tokens), K3 counted by
+             mask (bidirectional, causal, cross; 12 each a step), each
+             call against its plain version, a profiled step; then decode
+             at the trained
+             weights: encode 8 rows, ``encdec_prefill_cache``, 4 prompt
+             and 64 greedy tokens through ``decode_step`` (6 self and 6
+             cross K2 launches a step), one step's K2 outputs against the
+             plain version's, a profiled window; then the smoke config in
+             f32, the card against the CPU (identical tokens).
+13. the kernels line (K1's, K2's and K3's launches on each of their
+             paths under ``launches_by_path``), the card line, and the
+             result line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails. In the kernels
@@ -184,10 +211,10 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  rglru_scan_reverse, rwkv6_wkv,
                                  rwkv6_wkv_chunked, rwkv6_wkv_forward,
                                  rwkv6_wkv_plain)
-from repro_torch.models import (decode_step, forward,  # noqa: E402
-                                init_decode_cache, init_params,
-                                lm_decode_step, loss_fn, model_spec,
-                                tree_paths)
+from repro_torch.models import (decode_step, encdec_prefill_cache,  # noqa
+                                encode, forward, init_decode_cache,
+                                init_params, lm_decode_step, loss_fn,
+                                model_spec, tree_paths)
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
@@ -263,6 +290,14 @@ DECODE_EDGE_CASES = [
 # the window)
 RG_DECODE = dict(B=8, S=2048, H=16, KV=1, D=256,
                  valid=[2048, 1000, 1, 2048, 517, 2048, 33, 1500])
+# K2 at whisper-base's decode (G=1 at D=64, the kernel's first model
+# shapes at D=64): the self-attention cache of 448 slots, rows ragged, and
+# the cross-attention over 1500 encoder frames, every row full
+WHISPER_DECODE = {
+    "whisper_self": dict(B=8, S=448, H=8, KV=8, D=64,
+                         valid=[448, 1, 100, 300, 17, 448, 64, 250]),
+    "whisper_cross": dict(B=8, S=1500, H=8, KV=8, D=64, valid=[1500] * 8),
+}
 # f32: kernel and plain version both sum in fp32, in different orders
 F32_ATOL = 1e-4
 # bf16: both round an fp32 result below 2 in magnitude to bf16 (one ulp
@@ -285,13 +320,35 @@ FLASH_CASES = [
     (2, 37, 4, 2, 16, 8, 50.0),
     (2, 64, 2, 1, 32, 16, None),
 ]
+# K3 on the masks of the encoder-decoder and image-prefix paths, (B, Sq,
+# Skv, H, KV, D, causal, window, softcap, prefix_len): an encoder
+# (non-causal, Sq == Skv), cross-attention with ragged key tails both ways,
+# PaliGemma's prefix-LM mask with a prefix off the 64-key stage, and with a
+# window
+FLASH_MASK_CASES = [
+    (1, 128, 128, 4, 4, 64, False, None, None, 0),
+    (2, 37, 100, 4, 4, 64, False, None, None, 0),
+    (1, 100, 37, 2, 1, 64, False, None, 30.0, 0),
+    (2, 300, 300, 8, 1, 256, True, None, None, 100),
+    (1, 200, 200, 4, 2, 64, True, 32, None, 150),
+]
 # K3 at the training path's shapes: recurrentgemma-9b's L layer and
-# gemma2-27b's G layer, S=4096 (the repo's train_4k length)
+# gemma2-27b's G layer, S=4096 (the repo's train_4k length); whisper-base's
+# encoder (bidirectional over 1500 frames) and cross-attention (448 decoder
+# tokens over 1500 frames) at batch 8; paligemma-3b's prefix-LM layer (256
+# patches + 256 tokens, MQA, D=256) at batch 4. A shape without ``Skv``
+# is self-attention; without ``causal``, causal
 FLASH_SHAPES = {
     "recurrentgemma_L": dict(B=2, S=4096, H=16, KV=1, D=256, window=2048,
                              softcap=None),
     "gemma2_G": dict(B=2, S=4096, H=32, KV=16, D=128, window=None,
                      softcap=50.0),
+    "whisper_enc": dict(B=8, S=1500, H=8, KV=8, D=64, window=None,
+                        softcap=None, causal=False),
+    "whisper_cross": dict(B=8, S=448, Skv=1500, H=8, KV=8, D=64, window=None,
+                          softcap=None, causal=False),
+    "paligemma_prefix": dict(B=4, S=512, H=8, KV=1, D=256, window=None,
+                             softcap=None, prefix_len=256),
 }
 # gradients through K3's Function against the plain backward from the
 # plain forward: the two differ only by the forward's out and lse, so in
@@ -471,18 +528,23 @@ def kernel_phase(dev) -> dict:
     assert set(designs.values()) == {"simt", "mma16", "mma64"}, designs
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
-    for S in (1, 64):
-        args = paged_inputs(8, S, 28, 4, 128, 16, 64, torch.bfloat16, dev,
+    # the paged path's heads: qwen2-7b's (G=7, D=128) and paligemma-3b's
+    # (G=8 over one KV head of D=256)
+    for (model, H, KV, D), S in ((m, S) for m in (("qwen2", 28, 4, 128),
+                                                  ("paligemma", 8, 1, 256))
+                                 for S in (1, 64)):
+        tag = f"S{S}" if model == "qwen2" else f"{model}_S{S}"
+        args = paged_inputs(8, S, H, KV, D, 16, 64, torch.bfloat16, dev,
                             seed=S, inactive=True)
         got = paged_decode_attention(*args)
         want = paged_attention_plain(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= BF16_ATOL, (S, err)
-        errs[f"bf16_S{S}"] = err
+        assert err <= BF16_ATOL, (tag, err)
+        errs[f"bf16_{tag}"] = err
         bound_ms, bound_by = bound(args[0], args[1], args[3], args[4])
-        timings[S] = {
-            "design": paged_design(S, 7, torch.bfloat16),
+        timings[tag] = {
+            "design": paged_design(S, H // KV, torch.bfloat16),
             "kernel_ms": time_ms(lambda: paged_decode_attention(*args), 50,
                                  flush),
             "plain_ms": time_ms(lambda: paged_attention_plain(*args), 10,
@@ -493,13 +555,13 @@ def kernel_phase(dev) -> dict:
                                       50),
         }
         emit("kernel", name="paged_attention", dtype="bfloat16",
-             shape={"B": 8, "S": S, "H": 28, "KV": 4, "D": 128, "bt": 16,
+             shape={"B": 8, "S": S, "H": H, "KV": KV, "D": D, "bt": 16,
                     "NW": 64}, max_abs_err=err, atol=BF16_ATOL,
-             **timings[S])
+             **timings[tag])
     emit("kernel_check", name="paged_attention", max_abs_err=errs,
          designs=designs, f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
-    return {"max_abs_err": max(errs.values()), **timings[1],
-            "S64": timings[64]}
+    return {"max_abs_err": max(errs.values()), **timings.pop("S1"),
+            **timings}
 
 
 def decode_inputs(B, S, H, KV, D, valid, dtype, dev, seed):
@@ -605,44 +667,71 @@ def decode_kernel_phase(dev) -> dict:
              shape={"B": 8, "S": S, "H": 32, "KV": 16, "D": 128,
                     "softcap": 50.0}, valid_len=valid, max_abs_err=err,
              atol=BF16_ATOL, **timings[S])
-    c = RG_DECODE
-    args = decode_inputs(c["B"], c["S"], c["H"], c["KV"], c["D"], c["valid"],
-                         torch.bfloat16, dev, seed=c["S"] + 1)
-    got = decode_attention(*args)
-    want = decode_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= BF16_ATOL, ("recurrentgemma_L", err)
-    errs["bf16_recurrentgemma_L"] = err
-    bound_ms, bound_by = decode_bound(args[0], args[1], args[3])
-    rg = {"kernel_ms": time_ms(lambda: decode_attention(*args), 50, flush),
-          "plain_ms": time_ms(lambda: decode_attention_plain(*args), 10,
-                              flush),
-          "library_ms": time_ms(sdpa_decode_call(*args), 50, flush),
-          "bound_ms": bound_ms, "bound_by": bound_by,
-          "kernel_host_ms": host_ms(lambda: decode_attention(*args), 50),
-          "split_plan": decode_attention_mod._plan(
-              c["B"], c["S"], c["H"], c["KV"], c["D"], -1, torch.bfloat16,
-              dev.index or 0)}
-    emit("kernel", name="decode_attention", dtype="bfloat16",
-         shape={k: c[k] for k in ("B", "S", "H", "KV", "D")},
-         what="recurrentgemma-9b L-layer decode, G=16 at D=256",
-         valid_len=c["valid"], max_abs_err=err, atol=BF16_ATOL, **rg)
+    shapes = {"recurrentgemma_L": (RG_DECODE, "recurrentgemma-9b L-layer "
+                                   "decode, G=16 at D=256"),
+              **{name: (c, f"whisper-base decode, {name.split('_')[1]}-"
+                        "attention, G=1 at D=64")
+                 for name, c in WHISPER_DECODE.items()}}
+    model_shapes = {}
+    for name, (c, what) in shapes.items():
+        dims = [c[x] for x in ("B", "S", "H", "KV", "D")]
+        args = decode_inputs(*dims, c["valid"], torch.float32, dev,
+                             seed=c["S"] + 2)
+        err = (decode_attention(*args) - decode_attention_plain(*args)
+               ).abs().max().item()
+        assert err <= F32_ATOL, (name, err)
+        errs[f"f32_{name}"] = err
+        args = decode_inputs(*dims, c["valid"], torch.bfloat16, dev,
+                             seed=c["S"] + 1)
+        got = decode_attention(*args)
+        want = decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_ATOL, (name, err)
+        errs[f"bf16_{name}"] = err
+        bound_ms, bound_by = decode_bound(args[0], args[1], args[3])
+        t = {"kernel_ms": time_ms(lambda: decode_attention(*args), 50,
+                                  flush),
+             "plain_ms": time_ms(lambda: decode_attention_plain(*args), 10,
+                                 flush),
+             "library_ms": time_ms(sdpa_decode_call(*args), 50, flush),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "kernel_host_ms": host_ms(lambda: decode_attention(*args), 50),
+             "split_plan": decode_attention_mod._plan(
+                 *dims, -1, torch.bfloat16, dev.index or 0)}
+        emit("kernel", name="decode_attention", dtype="bfloat16",
+             shape={k: c[k] for k in ("B", "S", "H", "KV", "D")}, what=what,
+             valid_len=c["valid"], max_abs_err=err, atol=BF16_ATOL, **t)
+        model_shapes[name] = t
     emit("kernel_check", name="decode_attention", max_abs_err=errs,
          f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
     return {"max_abs_err": max(errs.values()), **timings[128],
-            "S4096": timings[4096], "recurrentgemma_L": rg}
+            "S4096": timings[4096], **model_shapes}
 
 
-def flash_bound(q, k, window):
+def visible(Sq, Skv, causal=True, window=None, prefix_len=0):
+    """K3's (Sq, Skv) boolean mask, numpy: causal, window, then every key
+    below ``prefix_len``."""
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Skv)[None, :]
+    m = j <= i if causal else np.ones((Sq, Skv), bool)
+    if window is not None:
+        m = m & (j > i - window)
+    if prefix_len:
+        m = m | (j < prefix_len)
+    return m
+
+
+def flash_bound(q, k, kw):
     """Least time for K3's forward: the larger of the bytes it must move
     (q, k, v read once, the output and the fp32 lse written once) over
     HBM bandwidth and its operations (2 per multiply-add of QK^T and PV,
-    4*D per visible (query, key) pair) over the peak for the dtype."""
+    4*D per visible (query, key) pair, counted from this call's mask)
+    over the peak for the dtype."""
     B, S, H, D = q.shape
-    i = np.arange(S, dtype=np.int64)
-    seen = np.minimum(i + 1, window) if window else i + 1
-    pairs = int(seen.sum()) * B * H
+    pairs = int(visible(S, k.shape[1], kw.get("causal", True),
+                        kw.get("window"), kw.get("prefix_len", 0)).sum()
+                ) * B * H
     isz = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * isz + B * H * S * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -651,11 +740,12 @@ def flash_bound(q, k, window):
                                  "operations"), pairs
 
 
-def flash_inputs(B, S, H, KV, D, dtype, dev, seed):
+def flash_inputs(B, S, H, KV, D, dtype, dev, seed, Skv=None):
     rng = np.random.default_rng(seed)
+    Skv = S if Skv is None else Skv
     return [torch.from_numpy(rng.standard_normal(s, np.float32))
             .to(dev, dtype) for s in
-            [(B, S, H, D), (B, S, KV, D), (B, S, KV, D)]]
+            [(B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)]]
 
 
 def rel_err(got, want) -> float:
@@ -678,52 +768,63 @@ def flash_grads_check(q, k, v, kw) -> dict:
     return {n: rel_err(g, w) for n, g, w in zip("qkv", got, want)}
 
 
-def sdpa_flash_call(q, k, v, window):
+def sdpa_flash_call(q, k, v, kw):
     """The library yardstick for K3 on a layer without softcap: one
-    ``scaled_dot_product_attention`` with ``enable_gqa`` and an explicit
-    band mask, inputs transposed beforehand (not timed). Timed only; the
-    port never calls it."""
-    S = q.shape[1]
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and K3's boolean
+    mask (``visible``), inputs transposed and the mask built beforehand
+    (not timed). Timed only; the port never calls it."""
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    i = torch.arange(S, device=q.device)
-    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    mask = torch.from_numpy(visible(q.shape[1], k.shape[1],
+                                    kw.get("causal", True), kw.get("window"),
+                                    kw.get("prefix_len", 0))).to(q.device)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
 def flash_kernel_phase(dev) -> dict:
     """K3 against its plain version: f32 on the reference test's cases
-    and the smoke heads, then f32 and bf16 at the training shapes,
-    forward (out and lse) and backward through the Function, each timed
-    (K3, plain, SDPA where one call computes the same function); the
-    bf16 times go to the kernels line."""
+    and the smoke heads, f32 and bf16 on the encoder, cross-attention and
+    prefix-LM masks (``FLASH_MASK_CASES``), then f32 and bf16 at the
+    training shapes, forward (out and lse) and backward through the
+    Function, each timed (K3, plain, SDPA where one call computes the
+    same function); the bf16 times go to the kernels line."""
     errs = {}
-    for i, (B, S, H, KV, D, window, softcap) in enumerate(FLASH_CASES):
+    cases = [(f"case{i}", (B, S, H, KV, D),
+              dict(causal=True, window=window, softcap=softcap), None)
+             for i, (B, S, H, KV, D, window, softcap)
+             in enumerate(FLASH_CASES)]
+    cases += [(f"mask_case{i}", (B, Sq, H, KV, D),
+               dict(causal=causal, window=window, softcap=softcap,
+                    prefix_len=prefix), Skv)
+              for i, (B, Sq, Skv, H, KV, D, causal, window, softcap, prefix)
+              in enumerate(FLASH_MASK_CASES)]
+    for i, (name, dims, kw, Skv) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(B, S, H, KV, D, dtype, dev, seed=i)
-            kw = dict(causal=True, window=window, softcap=softcap)
+            q, k, v = flash_inputs(*dims, dtype, dev, seed=i, Skv=Skv)
             got, glse = flash_attention_forward(q, k, v, **kw)
             want, wlse = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             lse_err = (glse - wlse).abs().max().item()
             if dtype == torch.float32:
-                assert max(err, lse_err) <= F32_ATOL, (i, err, lse_err)
+                assert max(err, lse_err) <= F32_ATOL, (name, err, lse_err)
             else:
-                assert err <= BF16_ATOL and lse_err <= 1e-3, (i, err,
+                assert err <= BF16_ATOL and lse_err <= 1e-3, (name, err,
                                                               lse_err)
             tag = str(dtype).split(".")[-1]
-            errs[f"{tag}_case{i}"] = max(err, lse_err)
+            errs[f"{tag}_{name}"] = max(err, lse_err)
             g = flash_grads_check(q, k, v, kw)
-            assert max(g.values()) <= GRAD_RTOL[dtype], (i, dtype, g)
+            assert max(g.values()) <= GRAD_RTOL[dtype], (name, dtype, g)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     for name, shp in FLASH_SHAPES.items():
-        kw = dict(causal=True, window=shp["window"],
-                  softcap=shp["softcap"])
+        kw = dict(causal=shp.get("causal", True), window=shp["window"],
+                  softcap=shp["softcap"], prefix_len=shp.get("prefix_len",
+                                                             0))
         dims = [shp[x] for x in ("B", "S", "H", "KV", "D")]
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(*dims, dtype, dev, seed=1)
+            q, k, v = flash_inputs(*dims, dtype, dev, seed=1,
+                                   Skv=shp.get("Skv"))
             got, glse = flash_attention_forward(q, k, v, **kw)
             want, wlse = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -736,15 +837,15 @@ def flash_kernel_phase(dev) -> dict:
             assert max(grads.values()) <= GRAD_RTOL[dtype], (name, grads)
             tag = str(dtype).split(".")[-1]
             errs[f"{tag}_{name}"] = err
-            bound_ms, bound_by, pairs = flash_bound(q, k, shp["window"])
+            bound_ms, bound_by, pairs = flash_bound(q, k, kw)
             t = {"kernel_ms": time_ms(lambda: flash_attention_forward(
                      q, k, v, **kw), 5, flush),
                  "plain_ms": time_ms(lambda: flash_attention_plain(
                      q, k, v, **kw), 2, flush),
                  "design": flash_design(dtype),
-                 "library_ms": (time_ms(sdpa_flash_call(
-                     q, k, v, shp["window"]), 5, flush)
-                     if shp["softcap"] is None else None),
+                 "library_ms": (time_ms(sdpa_flash_call(q, k, v, kw), 5,
+                                        flush)
+                                if shp["softcap"] is None else None),
                  "bound_ms": bound_ms, "bound_by": bound_by}
             emit("kernel", name="flash_attention", dtype=tag, shape=shp,
                  visible_pairs=pairs, max_abs_err=err, lse_max_abs_err=
@@ -755,9 +856,8 @@ def flash_kernel_phase(dev) -> dict:
             del q, k, v, got, want, glse, wlse
     emit("kernel_check", name="flash_attention", max_abs_err=errs,
          f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
-    main = timings["recurrentgemma_L"]
-    return {**main, "max_abs_err": max(errs.values()),
-            "gemma2_G": timings["gemma2_G"]}
+    main = timings.pop("recurrentgemma_L")
+    return {**main, "max_abs_err": max(errs.values()), **timings}
 
 
 # (B, T, W) of K5's checks: the reference test's cases, W past a multiple
@@ -1208,8 +1308,9 @@ def parity_phase(dev) -> None:
     """Smoke configs in f32: the engine on the card (kernels) gives the CPU
     engine's (plain versions') tokens, eviction log and metrics — the
     paged plane on qwen2, the gather plane on gemma2 (rolling-window
-    layers, chunk 1) and on qwen2 (chunk 8), and the paged plane on the
-    MoE configs (moonshot: every layer M; llama4: G and M alternating)."""
+    layers, chunk 1) and on qwen2 (chunk 8), the paged plane on the MoE
+    configs (moonshot: every layer M; llama4: G and M alternating) and on
+    paligemma (text-only decode, MQA)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for arch, paged, chunk, kernel in (
@@ -1217,7 +1318,8 @@ def parity_phase(dev) -> None:
             ("gemma2_27b", False, 1, decode_attention),
             ("qwen2_7b", False, 8, decode_attention),
             ("moonshot_v1_16b_a3b", True, 8, paged_decode_attention),
-            ("llama4_maverick_400b_a17b", True, 8, paged_decode_attention)):
+            ("llama4_maverick_400b_a17b", True, 8, paged_decode_attention),
+            ("paligemma_3b", True, 8, paged_decode_attention)):
         cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
         params = init_params(model_spec(cfg),
                              torch.Generator().manual_seed(0), "cpu",
@@ -2143,13 +2245,14 @@ def moe_layer_timings(cfg, params, dev) -> dict:
     return out
 
 
-def moe_serve_phase(dev) -> dict:
-    """M layers on the paged plane at full width: moonshot-v1-16b-a3b (48
-    M layers, 57.1 GB) under the qwen2 paged cell's traffic, captured and
-    eager, steady decode, a profiled run and the MoE layer's timings; then
-    llama4-maverick's GM unit (2 layers at full width). Returns K1's
-    launches in each run: the wrappers' and the device's."""
-    cfg = configs.get("moonshot_v1_16b_a3b")           # full width, bf16
+def paged_cell(cfg, dev, config) -> tuple:
+    """``cfg`` at full width on the paged plane under the qwen2 paged
+    cell's traffic (16 requests, 4 families of 512 shared + 64 unique
+    prompt tokens, 32 new tokens, 8 slots, chunk 64, bt 16, a LERC store
+    of 96 chain blocks), captured and eager (identical tokens, eviction
+    log and metrics), then ``steady_decode`` and a profiled run. Returns
+    (params, K1's launches in the captured run: the wrapper's and the
+    device's)."""
     t0 = time.time()
     params = init_params(model_spec(cfg), torch.Generator(
         device=dev).manual_seed(0), dev, dtype=cfg.dtype)
@@ -2178,13 +2281,12 @@ def moe_serve_phase(dev) -> dict:
     assert m["evictions"] > 0 and m["effective_hits"] > 0, m
     assert len(tokens) == 16 * kw["max_new"]
     assert all(0 <= t < cfg.vocab for t in tokens)
-    emit("serve", config="moonshot_v1_16b_a3b full width and depth, 48 M "
-         "layers (64 experts top-6 + 2 shared), bf16, random weights (seed "
-         "0), paged plane", requests=len(prompts), engine_steps=eng.steps,
-         kernel_launches=run["kernel_launches"],
+    emit("serve", config=config, requests=len(prompts),
+         engine_steps=eng.steps, kernel_launches=run["kernel_launches"],
          generated_tokens=len(tokens), tokens_per_s=len(tokens)
          / run["wall_s"], wall_s=run["wall_s"], init_s=init_s,
          param_bytes=param_bytes, block_nbytes=eng.pool.block_nbytes,
+         store_capacity=store.capacity,
          evictions=m["evictions"], effective_hits=m["effective_hits"],
          hits=m["hits"], accesses=m["accesses"],
          prefill_tokens=m["prefill_tokens"],
@@ -2192,14 +2294,28 @@ def moe_serve_phase(dev) -> dict:
          max_memory_allocated=peak, captured=run, eager=eager_run,
          eager_identical=True)
     del eng, store, reqs
-    launches = {"moonshot": (run["kernel_launches"]["paged_decode_attention"],
-                             run["device_launches"])}
     steady_decode(cfg, params, dev, paged=True, chunk=64, prompt=64,
                   max_seq=kw["max_seq"])
     profile_serve(cfg, params, dev, shared_prefix_prompts(
         cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
         "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
         "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
+    return params, (run["kernel_launches"]["paged_decode_attention"],
+                    run["device_launches"])
+
+
+def moe_serve_phase(dev) -> dict:
+    """M layers on the paged plane at full width: moonshot-v1-16b-a3b (48
+    M layers, 57.1 GB) under the qwen2 paged cell's traffic
+    (``paged_cell``) and the MoE layer's timings; then llama4-maverick's
+    GM unit (2 layers at full width). Returns K1's launches in each run:
+    the wrappers' and the device's."""
+    cfg = configs.get("moonshot_v1_16b_a3b")           # full width, bf16
+    params, moonshot = paged_cell(
+        cfg, dev, "moonshot_v1_16b_a3b full width and depth, 48 M layers "
+        "(64 experts top-6 + 2 shared), bf16, random weights (seed 0), "
+        "paged plane")
+    launches = {"moonshot": moonshot}
     emit("moe_layer", config=cfg.arch, **moe_layer_timings(cfg, params, dev))
     del params
     gc.collect()
@@ -2368,24 +2484,32 @@ def train_parity_phase(dev) -> None:
              kernel_launches=launches)
 
 
-def train_steps(cfg, dev, expect, config):
-    """4 AdamW steps of ``cfg`` (bf16, seeded random weights) at batch
-    2 x 4096 from ``TrainLoader`` through ``build_train_step``, every
-    launch counted; ``expect`` holds each kernel's launches a step by the
-    layout. Returns (step_fn, state, a fifth batch, the run's launches)."""
+def train_steps(cfg, dev, expect, config, batches=None):
+    """4 AdamW steps of ``cfg`` (bf16, seeded random weights) through
+    ``build_train_step``, every launch counted, at batch 2 x 4096 from
+    ``TrainLoader`` or on the first four of ``batches`` (five, on the
+    card); ``expect`` holds each kernel's launches a step by the layout.
+    ``tokens_per_s`` counts the tokens that carry loss; beside it
+    ``positions_per_s`` counts every position the model runs (an image
+    prefix's patches, an encoder's frames, the text). Returns (step_fn,
+    state, a fifth batch, the run's launches)."""
     tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
-    n_steps, B, S = 4, 2, 4096
+    n_steps = 4
     t0 = time.time()
     state = make_train_state(cfg, tc, torch.Generator(
         device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     n_params = sum(t.numel() for _, t in tree_paths(state["params"]))
-    loader = TrainLoader(LoaderConfig(global_batch=B, seq_len=S,
-                                      vocab=cfg.vocab, seed=0))
-    batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in loader.build_batch(i).items()}
-               for i in range(n_steps + 1)]
+    if batches is None:
+        loader = TrainLoader(LoaderConfig(global_batch=2, seq_len=4096,
+                                          vocab=cfg.vocab, seed=0))
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in loader.build_batch(i).items()}
+                   for i in range(n_steps + 1)]
+    B, S = batches[0]["tokens"].shape
+    extra = sum(batches[0][k].shape[1] for k in ("patches", "frames")
+                if k in batches[0])
     step_fn = build_train_step(cfg, tc)
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
@@ -2402,6 +2526,7 @@ def train_steps(cfg, dev, expect, config):
                 "step": i, "loss": m["loss"].item(),
                 "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item(),
                 "ms": ms, "tokens_per_s": B * S / ms * 1e3,
+                "positions_per_s": B * (S + extra) / ms * 1e3,
                 "launches": {k.__name__: k.launches - before[k.__name__]
                              for k in COUNTED if k.launches
                              - before[k.__name__]}})
@@ -2413,7 +2538,8 @@ def train_steps(cfg, dev, expect, config):
     for name, n in counts.items():
         assert n == expect.get(name, 0) * n_steps, (counts, expect)
     emit("train", config=config, params=n_params, init_s=init_s, batch=B,
-         seq_len=S, steps=steps, kernel_launches=counts,
+         seq_len=S, frontend_positions=extra, steps=steps,
+         kernel_launches=counts,
          expected_launches_per_step=expect, max_memory_allocated=peak)
     return step_fn, state, batches[n_steps], counts
 
@@ -2726,7 +2852,8 @@ def rwkv_layer_check(cfg, state, batch) -> None:
          loss_abs_diff=abs(loss_kernel - loss_plain))
 
 
-def profile_train(cfg, step_fn, state, batch, depth, kernels) -> None:
+def profile_train(cfg, step_fn, state, batch, depth, kernels,
+                  run="one train step, batch 2 x 4096") -> None:
     """Where a train step's time goes: one step under torch.profiler,
     CUDA activity only. Device busy share = summed kernel time / wall.
     ``kernels`` maps each port kernel to a substring of its device name."""
@@ -2752,11 +2879,369 @@ def profile_train(cfg, step_fn, state, batch, depth, kernels) -> None:
         per_kernel.update({f"{name}_ms": ms, f"{name}_share": ms / busy_ms})
     gemm_ms = total(lambda n: any(g in n for g in GEMM_NAMES))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit("profile", config=f"{cfg.arch} {depth}", run="one train step, "
-         "batch 2 x 4096", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit("profile", config=f"{cfg.arch} {depth}", run=run,
+         wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_idle_share=1 - busy_ms / wall_ms, **per_kernel,
          gemm_ms=gemm_ms, gemm_share=gemm_ms / busy_ms,
          top_kernels=[[n[:80], t] for n, t in top])
+
+
+# --------------------------------------- encoder-decoder and image prefix
+
+
+# paligemma-3b's chain block: 16 tokens x 18 layers x (k, v) x 1 KV head
+# x 256 x 2 bytes
+PALIGEMMA_BLOCK_BYTES = 16 * 18 * 2 * 256 * 2
+# a full-depth bf16 loss, kernel route vs plain route, at 2 layers:
+# relative to the loss (beside it, the control: the plain route with one
+# attention output of its first layer nudged one ulp)
+TRAIN_LOSS_BF16_RTOL = 1e-2
+
+
+def vlm_serve_phase(dev) -> tuple:
+    """The image-prefix family on the paged plane: paligemma-3b at full
+    width and depth (18 layers, MQA with one KV head of 256, vocab
+    257,216; text-only decode, as the reference engine serves it) under
+    the qwen2 paged cell's traffic (``paged_cell``). Returns K1's
+    launches in the captured run: the wrapper's and the device's."""
+    cfg = configs.get("paligemma_3b")
+    probe = ServeEngine(cfg, {}, max_slots=1, max_seq=16,
+                        store=PrefixStore(1 << 40, "lerc", block_tokens=16),
+                        pool_blocks=1, paged=True, device=dev,
+                        cuda_graphs=False)
+    assert probe.pool.block_nbytes == PALIGEMMA_BLOCK_BYTES, \
+        probe.pool.block_nbytes
+    del probe
+    params, launches = paged_cell(
+        cfg, dev, "paligemma_3b full width and depth, 18 G layers (8 heads, "
+        "MQA, d_head 256, d_ff 16384, vocab 257216), bf16, random weights "
+        "(seed 0), paged plane, text-only decode")
+    del params
+    return launches
+
+
+def frontend_batches(cfg, dev, n, B, S, seed=0):
+    """``n`` training batches of B x S tokens and targets and, for the
+    stub frontends, B patch embeddings (vlm) or frames (encdec) from a
+    seeded numpy generator, on the card in the model dtype."""
+    rng = np.random.default_rng(seed)
+    feats = ({"patches": (cfg.frontend_len, cfg.frontend_dim)}
+             if cfg.frontend == "patch_embed"
+             else {"frames": (cfg.frontend_len, cfg.d_model)})
+    out = []
+    for _ in range(n):
+        b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)).to(dev) for k in ("tokens", "targets")}
+        for k, shp in feats.items():
+            b[k] = torch.from_numpy(rng.standard_normal(
+                (B,) + shp, np.float32)).to(dev, cfg.dtype)
+        out.append(b)
+    return out
+
+
+def k3_mask(q, k, kw) -> str:
+    """Which of the slice's masks a K3 call runs."""
+    if kw.get("prefix_len"):
+        return "prefix"
+    if kw.get("causal", True):
+        return "causal"
+    return "bidirectional" if q.shape[1] == k.shape[1] else "cross"
+
+
+def k3_by_mask(tally):
+    """A stand-in for K3's wrapper inside the layers: tallies each call by
+    ``k3_mask`` in ``tally``, then calls the wrapper (which counts its
+    launch as always)."""
+    def k3(q, k, v, **kw):
+        name = k3_mask(q, k, kw)
+        tally[name] = tally.get(name, 0) + 1
+        return flash_attention(q, k, v, **kw)
+    return k3
+
+
+def k3_layer_check(cfg, params, batch, what) -> None:
+    """One forward at ``params`` and ``batch``: every K3 call held to its
+    plain version on the same inputs (the kernel's output carried on),
+    within one bf16 ulp (``LAYER_RTOL``) of the call's scale."""
+    errs = {}
+
+    def k3(q, k, v, **kw):
+        got = flash_attention(q, k, v, **kw)
+        errs.setdefault(k3_mask(q, k, kw), []).append(
+            rel_err(got, flash_attention_plain(q, k, v, **kw)[0]))
+        return got
+
+    with torch.no_grad(), mock.patch.object(model_layers, "flash_attention",
+                                            k3):
+        loss_fn(cfg, params, batch)
+    worst = max(max(e) for e in errs.values())
+    assert worst <= LAYER_RTOL["flash_attention"], errs
+    emit("train_layers", what=what, rel_err=errs,
+         rtol=LAYER_RTOL["flash_attention"])
+
+
+def vlm_loss_check(cfg, params, batch) -> dict:
+    """The first step's loss at 2 of the 18 layers (the first two, the
+    image prefix included), kernel route (K3's prefix-LM mask) against the
+    plain route (``flash_attention_plain``), beside the control: the plain
+    route with its first call's first output nudged one ulp. A random
+    full-depth bf16 model is chaotic (``paged_decode_step``), so the bar
+    is asserted at 2 layers and the full depth's distance is printed."""
+    def plain(q, k, v, **kw):
+        return flash_attention_plain(q, k, v, **kw)[0]
+
+    def nudged():
+        calls = []
+
+        def attend(q, k, v, **kw):
+            out = plain(q, k, v, **kw)
+            if not calls:
+                out[0, 0, 0, 0] = (out[0, 0, 0, 0].float()
+                                   * (1 + 2 ** -7)).to(out.dtype)
+            calls.append(1)
+            return out
+        return attend
+
+    out = {}
+    for n in (2, cfg.n_layers):
+        c = cfg.replace(n_layers=n)
+        p = {**params, "stack": _slice(params["stack"], n)}
+        losses = {}
+        with torch.no_grad():
+            losses["kernel"] = loss_fn(c, p, batch).item()
+            for name, fn in (("plain", plain), ("one_ulp", nudged())):
+                with mock.patch.object(model_layers, "flash_attention", fn):
+                    losses[name] = loss_fn(c, p, batch).item()
+        out[n] = {**losses,
+                  "kernel_vs_plain": abs(losses["kernel"] - losses["plain"]),
+                  "one_ulp_vs_plain": abs(losses["one_ulp"]
+                                          - losses["plain"])}
+    two = out[2]
+    assert all(math.isfinite(x) for d in out.values() for x in d.values())
+    assert two["kernel_vs_plain"] <= TRAIN_LOSS_BF16_RTOL * abs(
+        two["plain"]), out
+    return out
+
+
+def vlm_train_phase(dev) -> int:
+    """paligemma-3b at full width and depth (18 layers), bf16, seeded
+    random weights, 4 AdamW steps at batch 4 through ``build_train_step``:
+    each example 256 patch embeddings (dim 1152, the SigLIP stub) and 256
+    text tokens from a seeded numpy generator; every attention a K3
+    launch with the prefix-LM mask (36 a step: 18 forward, 18 checkpoint
+    recomputes). Before the first step, the loss at 2 layers by the kernel
+    and by the plain route (``vlm_loss_check``); after the last, each
+    layer's K3 output against its plain version and a profiled step.
+    Returns K3's launches."""
+    cfg = configs.get("paligemma_3b")
+    batches = frontend_batches(cfg, dev, 5, 4, 256)
+    # the weights ``train_steps`` starts from (the same seed and draws)
+    params = init_params(model_spec(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    first = vlm_loss_check(cfg, params, batches[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tally = {}
+    with mock.patch.object(model_layers, "flash_attention",
+                           k3_by_mask(tally)):
+        step_fn, state, batch, counts = train_steps(
+            cfg, dev, {"flash_attention": 2 * cfg.n_layers},
+            "paligemma_3b full width and depth (18 layers, d_model 2048, 8 "
+            "heads, MQA, d_head 256, d_ff 16384, vocab 257216), bf16, "
+            "random weights (seed 0); 256 patches (dim 1152) + 256 tokens",
+            batches=batches)
+    assert tally == {"prefix": counts["flash_attention"]}, tally
+    emit("vlm_loss_check", what="paligemma_3b first-step loss, kernel "
+         "route vs plain route, and the plain route with one ulp nudged in "
+         "its first layer", by_depth=first, rtol=TRAIN_LOSS_BF16_RTOL,
+         asserted_at_layers=2)
+    k3_layer_check(cfg, state["params"], batch, "paligemma_3b 18 layers, "
+                   "bf16, trained weights, a fifth batch: each K3 call "
+                   "against its plain version")
+    profile_train(cfg, step_fn, state, batch, "18 layers",
+                  {"flash_attention": "flash_wgmma_kernel"},
+                  "one train step, batch 4 x (256 patches + 256 tokens)")
+    del state
+    return counts["flash_attention"]
+
+
+def encdec_greedy(cfg, params, dev, frames, prompt, new, max_seq):
+    """whisper's decode: ``encode`` the (B, T, d) ``frames``,
+    ``encdec_prefill_cache``, then ``decode_step`` with a scalar position,
+    the (B, P) ``prompt`` fed a column a step and ``new`` greedy tokens.
+    Returns (every step's logits, fp32 (B, P + new, V) on the host; the
+    greedy tokens (B, new); prefill, prompt and greedy ms a step)."""
+    B, P = prompt.shape
+    prompt = prompt.to(dev)
+    logits, toks = [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encode(cfg, params, frames.to(dev))
+        cache = encdec_prefill_cache(cfg, params, enc, B, max_seq)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for pos in range(P):
+            lg, _ = decode_step(cfg, params, cache, prompt[:, pos:pos + 1],
+                                pos)
+            logits.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(new):
+            tok = logits[-1].argmax(-1, keepdim=True).int()
+            toks.append(tok)
+            lg, _ = decode_step(cfg, params, cache, tok, P + i)
+            logits.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    toks = (torch.cat(toks, 1) if toks
+            else torch.empty((B, 0), dtype=torch.int32))
+    return (torch.stack(logits, 1).cpu(), toks.cpu(), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / P, (t3 - t2) * 1e3 / max(new, 1))
+
+
+def k2_by_attention(tally, enc_len, check=None):
+    """A stand-in for K2's wrapper inside the layers: tallies each call as
+    ``cross`` (over the encoder's ``enc_len`` keys) or ``self``, then
+    calls the wrapper; with ``check`` (a list) each call's output is held
+    to the plain version's, (max error, scale) appended."""
+    def k2(q, k, v, valid, window=None, softcap=None):
+        name = "cross" if k.shape[1] == enc_len else "self"
+        tally[name] = tally.get(name, 0) + 1
+        got = decode_attention(q, k, v, valid, window=window,
+                               softcap=softcap)
+        if check is not None:
+            want = decode_attention_plain(q, k, v, valid, window, softcap)
+            check.append((name, (got.float() - want.float()).abs().max()
+                          .item(), want.float().abs().max().item()))
+        return got
+    return k2
+
+
+def encdec_phase(dev) -> dict:
+    """whisper-base at full width and depth (6 + 6 layers, d 512, 8 heads,
+    D 64, vocab 51,865), bf16, seeded random weights. Training: 4 AdamW
+    steps at batch 8, 1500 frames and 448 decoder tokens, every attention
+    a K3 launch (36 a step: the encoder's bidirectional, the decoder's
+    causal and its cross-attention over the frames, each with its
+    checkpoint recompute), then each call against its plain version and a
+    profiled step.
+    Decode at the trained weights: encode 8 rows of 1500 frames,
+    ``encdec_prefill_cache``, 4 prompt tokens and 64 greedy ones through
+    ``decode_step`` with a scalar position, every attention a K2 launch (6
+    self, 6 cross a step); one step's K2 outputs against the plain
+    version's; a profiled window. Then the smoke config in f32 on the card
+    against the CPU: identical tokens. Returns the K3 launches by mask
+    and the K2 launches by attention."""
+    cfg = configs.get("whisper_base")
+    B, S, max_seq = 8, 448, 448
+    batches = frontend_batches(cfg, dev, 5, B, S)
+    k3_tally = {}
+    with mock.patch.object(model_layers, "flash_attention",
+                           k3_by_mask(k3_tally)):
+        step_fn, state, batch, counts = train_steps(
+            cfg, dev, {"flash_attention": 6 * cfg.n_layers},
+            "whisper_base full width and depth (6 encoder + 6 decoder "
+            "layers, d_model 512, 8 heads x 64, d_ff 2048, vocab 51865), "
+            "bf16, random weights (seed 0); 1500 frames + 448 tokens",
+            batches=batches)
+    assert k3_tally == {m: 2 * 4 * cfg.n_layers for m in (
+        "bidirectional", "causal", "cross")}, k3_tally
+    k3_layer_check(cfg, state["params"], batch, "whisper_base 6 + 6 layers, "
+                   "bf16, trained weights, a fifth batch: each K3 call "
+                   "(encoder, decoder self, cross) against its plain "
+                   "version")
+    profile_train(cfg, step_fn, state, batch, "6 + 6 layers",
+                  {"flash_attention": "flash_wgmma_kernel"},
+                  "one train step, batch 8 x (1500 frames + 448 tokens)")
+    params = state["params"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.frontend_len, cfg.d_model), np.float32)).to(dev, cfg.dtype)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 4)).astype(
+        np.int32))
+    encdec_greedy(cfg, params, dev, frames, prompt[:, :1], 1, max_seq)
+    k2_tally = {}
+    with mock.patch.object(model_layers, "decode_attention",
+                           k2_by_attention(k2_tally, cfg.frontend_len)):
+        (logits, toks, prefill_ms, prompt_ms, greedy_ms), counts = counted(
+            lambda: encdec_greedy(cfg, params, dev, frames, prompt, 64,
+                                  max_seq))
+    steps = 4 + 64
+    assert counts["decode_attention"] == 2 * cfg.n_layers * steps, counts
+    assert k2_tally == {"self": cfg.n_layers * steps,
+                        "cross": cfg.n_layers * steps}, k2_tally
+    assert counts["flash_attention"] == cfg.n_encoder_layers, counts
+    assert torch.isfinite(logits).all()
+    assert ((0 <= toks) & (toks < cfg.vocab)).all()
+    # one step's K2 outputs against the plain version's
+    checks = []
+    with mock.patch.object(model_layers, "decode_attention",
+                           k2_by_attention({}, cfg.frontend_len, checks)):
+        encdec_greedy(cfg, params, dev, frames, prompt[:, :1], 0, max_seq)
+    assert len(checks) == 2 * cfg.n_layers, checks
+    worst = max(e / sc for _, e, sc in checks)
+    assert worst <= 2 ** -7, checks                  # one bf16 ulp
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        encdec_greedy(cfg, params, dev, frames, prompt[:, :1], 8, max_seq)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    emit("encdec_decode", config="whisper_base full width and depth, bf16, "
+         "trained weights (4 steps from seed 0)", batch=B,
+         frames=cfg.frontend_len, max_seq=max_seq, prompt_tokens=4,
+         new_tokens=64, prefill_ms=prefill_ms, prompt_ms_per_step=prompt_ms,
+         greedy_ms_per_step=greedy_ms, tokens_per_s=B * 1e3 / greedy_ms,
+         kernel_launches=counts, k2_launches=k2_tally,
+         per_call_max_err_over_scale=worst,
+         first_tokens=toks[:2, :8].tolist(),
+         profiled="encode + prefill + 9 decode steps",
+         profiled_wall_ms=wall_ms, device_busy_ms=busy,
+         device_idle_share=(1 - busy / wall_ms if busy else
+                            "not measured: the profiler recorded no device "
+                            "activity"),
+         top_kernels=[[n[:80], t] for n, t in sorted(
+             by_name.items(), key=lambda kv: -kv[1])[:5]])
+    del params
+    encdec_parity(dev)
+    return {"k3_by_mask": k3_tally, "k2_by_attention": k2_tally}
+
+
+def encdec_parity(dev) -> None:
+    """The whisper-base smoke config in f32: encode, prefill, 4 prompt
+    tokens and 12 greedy ones on the card (K3 in the encoder, K2 in every
+    decode attention) and on the CPU from the same weights: identical
+    tokens, logits within ``LOGITS_RTOL`` of their scale."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("whisper_base", smoke=True).replace(dtype=torch.float32)
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0),
+                         "cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.frontend_len, cfg.d_model), np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4)).astype(
+        np.int32))
+    cpu = encdec_greedy(cfg, params, "cpu", frames, prompt, 12, 32)
+    card_params = tree_map(lambda t: t.to(dev), params)
+    card, counts = counted(lambda: encdec_greedy(
+        cfg, card_params, dev, frames, prompt, 12, 32))
+    assert counts["flash_attention"] == cfg.n_encoder_layers, counts
+    assert counts["decode_attention"] == 2 * cfg.n_layers * 16, counts
+    assert torch.equal(card[1], cpu[1]), (card[1], cpu[1])
+    err = (card[0] - cpu[0]).abs().max().item()
+    scale = cpu[0].abs().max().item()
+    assert err <= LOGITS_RTOL * scale, (err, scale)
+    emit("encdec_parity", config="whisper_base smoke f32", new_tokens=12,
+         tokens_identical=True, max_abs_err=err, logits_scale=scale,
+         rtol=LOGITS_RTOL, kernel_launches=counts)
 
 
 def kernel_entry(name, replaces, launches, kern) -> dict:
@@ -2809,6 +3294,9 @@ def main() -> int:
     k2_legacy = legacy_serve_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    k1_vlm = vlm_serve_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = train_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # recurrentgemma's state goes before rwkv6's
@@ -2816,6 +3304,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # rwkv6's 32-layer state goes first
     train_resume_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3_vlm = vlm_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = encdec_phase(dev)
     k1_entry = kernel_entry("paged_attention",
                             "src/repro/kernels/paged_attention.py:41",
                             k1_launches, k1)
@@ -2825,11 +3319,14 @@ def main() -> int:
                     "D=128 bt=16 NW=64, bf16", design=k1["design"],
                     device_launches=k1_runs,
                     kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"],
+                    paligemma_S1=k1["paligemma_S1"],
+                    paligemma_S64=k1["paligemma_S64"],
                     launches_by_path={
                         "qwen2_7b_paged_serve": [k1_launches, k1_runs],
                         "moonshot_v1_16b_a3b_paged_serve": k1_moe["moonshot"],
                         "llama4_maverick_GM_paged_serve":
-                            k1_moe["llama4_GM"]})
+                            k1_moe["llama4_GM"],
+                        "paligemma_3b_paged_serve": k1_vlm})
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
                             k2_launches, k2)
@@ -2837,18 +3334,30 @@ def main() -> int:
                     "_decode_kernel", shape="B=8 H=32 KV=16 D=128 S=128 "
                     "ragged, bf16", S4096=k2["S4096"],
                     recurrentgemma_L=k2["recurrentgemma_L"],
+                    whisper_self=k2["whisper_self"],
+                    whisper_cross=k2["whisper_cross"],
                     device_launches=k2_runs,
                     launches_by_path={
                         "gemma2_27b_gather_serve": [k2_launches, k2_runs],
                         "recurrentgemma_9b_decode_step": k2_recurrent,
-                        "qwen2_7b_4_layers_legacy_serve": k2_legacy})
+                        "qwen2_7b_4_layers_legacy_serve": k2_legacy,
+                        "whisper_base_decode_step":
+                            whisper["k2_by_attention"]})
     k3_entry = kernel_entry("flash_attention",
                             "src/repro/kernels/flash_attention.py:35",
                             train_launches["flash_attention"], k3)
     k3_entry.update(tpu_kernel="src/repro/kernels/flash_attention.py:"
                     "_flash_kernel", shape="recurrentgemma L layer: B=2 "
                     "S=4096 H=16 KV=1 D=256 window 2048, bf16",
-                    design=k3["design"], gemma2_G=k3["gemma2_G"])
+                    design=k3["design"], gemma2_G=k3["gemma2_G"],
+                    whisper_enc=k3["whisper_enc"],
+                    whisper_cross=k3["whisper_cross"],
+                    paligemma_prefix=k3["paligemma_prefix"],
+                    launches_by_path={
+                        "recurrentgemma_9b_5_layers_train":
+                            train_launches["flash_attention"],
+                        "paligemma_3b_train_prefix": k3_vlm,
+                        "whisper_base_train": whisper["k3_by_mask"]})
     k5_entry = kernel_entry("rglru_scan",
                             "src/repro/kernels/rglru_scan.py:28",
                             train_launches["rglru_scan"]

@@ -15,9 +15,11 @@ ARCH_IDS = [
     "gemma2_27b",
     "llama4_maverick_400b_a17b",
     "moonshot_v1_16b_a3b",
+    "paligemma_3b",
     "qwen2_7b",
     "recurrentgemma_9b",
     "rwkv6_3b",
+    "whisper_base",
 ]
 
 

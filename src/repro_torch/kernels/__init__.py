@@ -7,9 +7,11 @@ raises); on CPU tensors it runs the plain version:
 * ``decode_attention`` / ``decode_attention_plain`` — flash-decoding
   against contiguous caches (serving, gather plane);
 * ``flash_attention`` / ``flash_attention_plain`` — the training and
-  prefill forward's self-attention (``flash_attention_forward``: the same
-  route without autograd, returning the log-sum-exp too); its backward is
-  plain PyTorch (``flash_attention_bwd_plain``);
+  prefill forward's attention: causal or windowed self-attention, an
+  image prefix (``prefix_len``), an encoder's bidirectional attention and
+  a decoder's cross-attention (Sq != Skv) (``flash_attention_forward``:
+  the same route without autograd, returning the log-sum-exp too); its
+  backward is plain PyTorch (``flash_attention_bwd_plain``);
 * ``rglru_scan`` / ``rglru_scan_plain`` — the RG-LRU recurrence of the
   training forward, forward and reverse (backward) mode
   (``rglru_scan_bwd_plain``);

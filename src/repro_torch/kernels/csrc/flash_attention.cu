@@ -2,14 +2,16 @@
 // to Python through a plain C interface (ctypes).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
-// _flash_kernel and computes what it computes: self-attention with Sq ==
-// Skv, query head h reading KV head h / G, query i attending keys j <= i
-// (causal) and j > i - window (with a window). Scores are taken in fp32,
-// scaled and softcapped, c*tanh(s/c), before the mask; the softmax is
-// online in fp32, a row that sees no key gives 0 (acc / max(l, 1e-30)), and
-// the output is written in q's dtype. It also writes each row's fp32
-// log-sum-exp, m + log(l) (1e30 for a row that sees no key), which the
-// backward needs.
+// _flash_kernel and computes what it computes: query head h reading KV
+// head h / G, query i attending keys j < Skv with j <= i (causal, Sq ==
+// Skv) and j > i - window (with a window), or with j < prefix whatever
+// the band says (PaliGemma's prefix-LM rule); without causality Sq and Skv
+// may differ (an encoder, a decoder's cross-attention). Scores are taken
+// in fp32, scaled and softcapped, c*tanh(s/c), before the mask; the
+// softmax is online in fp32, a row that sees no key gives 0 (acc / max(l,
+// 1e-30)), and the output is written in q's dtype. It also writes each
+// row's fp32 log-sum-exp, m + log(l) (1e30 for a row that sees no key),
+// which the backward needs.
 //
 // What bounds it on this card: operations. At the training shapes (S =
 // 4096, D = 128 or 256) each (query, key) pair costs 4*D operations and
@@ -20,8 +22,10 @@
 //    (B, H, S, D) and padded S, these kernels mask the ragged tail instead.
 //  * One block per (tile of query rows, query head, b). The block walks
 //    only the key tiles its rows can see, [max(0, q0 - window + 1),
-//    min(S, q0 + rows)) for causal layers: the TPU's grid skip of tiles
-//    above the diagonal and outside the band, done as a loop bound.
+//    min(Skv, q0 + rows)) for causal layers: the TPU's grid skip of tiles
+//    above the diagonal and outside the band, done as a loop bound. A
+//    prefix widens the range to [0, max(q0 + rows, prefix)): the keys
+//    below it stay visible outside the band.
 //  * K and V tiles are staged in shared memory with 16-byte cp.async copies
 //    into two buffers, the next tile's copies in flight while the block
 //    computes on the current one.
@@ -113,13 +117,43 @@ size_t smem_bytes(int D) {
          (size_t)(kBQ * ldp + 2 * kBQ) * sizeof(float);
 }
 
+// the key range [lo, hi) that query rows [q0, q0 + rows) can see. PREFIX:
+// the call may have a prefix (> 0). The wgmma kernel takes it as a
+// template argument, so that its prefix-free instance, which the causal
+// and windowed layers run, is the code it was before prefixes existed: a
+// runtime prefix test in its mask made the compiler branch on every
+// element of a masked stage, and those layers slower
+template <bool PREFIX>
+__device__ __forceinline__ void key_range(int q0, int rows, int Skv,
+                                          int causal, int window, int prefix,
+                                          int& lo, int& hi) {
+  lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  hi = causal ? min(Skv, q0 + rows) : Skv;
+  if (PREFIX && prefix > 0) {
+    lo = 0;
+    hi = max(hi, min(prefix, Skv));
+  }
+}
+
+// whether query qpos sees key kpos below hi: in the band, or in the prefix.
+// Bitwise, not short-circuit, so that it compiles to predicates rather
+// than to a branch an element (the wgmma kernel's prefix-free instance
+// keeps the parent's short-circuit test, which its compiler predicates)
+__device__ __forceinline__ bool visible(int qpos, int kpos, int hi,
+                                        int causal, int window, int prefix) {
+  return (kpos < hi) & ((((!causal) | (kpos <= qpos)) &
+                         ((window < 0) | (kpos > qpos - window))) |
+                        (kpos < prefix));
+}
+
 // NJ: chunks of 4 output columns per thread, ceil(D / 64).
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int S, int H, int KV, int D,
-                       int causal, int window, float scale, float softcap) {
+                       float* __restrict__ lse, int S, int Skv, int H, int KV,
+                       int D, int causal, int window, int prefix, float scale,
+                       float softcap) {
   const int G = H / KV;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -139,8 +173,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sL = sAlpha + kBQ;                                  // [kBQ]
 
   // the keys this block's rows can see
-  const int lo = window >= 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(S, q0 + kBQ) : S;
+  int lo, hi;
+  key_range<true>(q0, kBQ, Skv, causal, window, prefix, lo, hi);
 
   const int chunks = D * (int)sizeof(T) / 16;  // 16-byte pieces of a row
   constexpr int kPiece = 16 / sizeof(T);
@@ -151,7 +185,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / chunks;
       const int c = (i - r * chunks) * kPiece;
       const bool ok = k0 + r < hi;
-      const size_t off = ok ? (((size_t)b * S + k0 + r) * KV + kvh) * D + c
+      const size_t off = ok ? (((size_t)b * Skv + k0 + r) * KV + kvh) * D + c
                             : 0;
       attn::cp_async16(tk + r * ldk + c, k + off, ok);
       attn::cp_async16(tv + r * ldk + c, v + off, ok);
@@ -229,8 +263,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kpos = k0 + sc + 8 * j;
         float x = s[i][j];
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const bool ok = kpos < hi && (!causal || kpos <= qpos) &&
-                        (window < 0 || kpos > qpos - window);
+        const bool ok = visible(qpos, kpos, hi, causal, window, prefix);
         s[i][j] = ok ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -312,9 +345,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int S, int H, int KV, int D, int causal,
-                   int window, float scale, float softcap,
-                   cudaStream_t stream) {
+                   void* lse, int B, int S, int Skv, int H, int KV, int D,
+                   int causal, int window, int prefix, float scale,
+                   float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, NJ>,
@@ -324,18 +357,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), S, H, KV, D, causal, window, scale, softcap);
+      static_cast<float*>(lse), S, Skv, H, KV, D, causal, window, prefix,
+      scale, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     void* lse, int B, int S, int H, int KV, int D,
-                     int causal, int window, float scale, float softcap,
-                     cudaStream_t stream) {
-#define FLASH_LAUNCH(NJ)                                                   \
-  return launch<T, NJ>(q, k, v, out, lse, B, S, H, KV, D, causal, window, \
-                       scale, softcap, stream)
+                     void* lse, int B, int S, int Skv, int H, int KV, int D,
+                     int causal, int window, int prefix, float scale,
+                     float softcap, cudaStream_t stream) {
+#define FLASH_LAUNCH(NJ)                                                     \
+  return launch<T, NJ>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,      \
+                       window, prefix, scale, softcap, stream)
   if (D <= 64) FLASH_LAUNCH(1);
   if (D <= 128) FLASH_LAUNCH(2);
   FLASH_LAUNCH(4);
@@ -501,12 +535,13 @@ constexpr int kWK = 64;    // keys a stage
 constexpr int kWQ = 128;   // query rows a block
 constexpr int kWThreads = 256;
 
-template <int DP>
+template <int DP, bool PREFIX>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                   float* __restrict__ lse, int S, int H, int KV, int D,
-                   int causal, int window, float scale, float softcap) {
+                   float* __restrict__ lse, int S, int Skv, int H, int KV,
+                   int D, int causal, int window, int prefix, float scale,
+                   float softcap) {
   constexpr int NB = DP / 64;       // 64-column blocks of a row
   constexpr int CH = DP / 8;        // 16-byte chunks of a row
   constexpr int TQ = kWQ * 128;     // bytes of one column block of Q
@@ -530,10 +565,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t4 = lane & 3;
   const int qw = q0 + 64 * wg;          // the warpgroup's first row
   // the keys the block's rows can see, and the warpgroup's own
-  const int lo = window >= 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(S, q0 + kWQ) : S;
-  const int wlo = window >= 0 ? max(0, qw - window + 1) : 0;
-  const int whi = causal ? min(S, qw + 64) : S;
+  int lo, hi, wlo, whi;
+  key_range<PREFIX>(q0, kWQ, Skv, causal, window, prefix, lo, hi);
+  key_range<PREFIX>(qw, 64, Skv, causal, window, prefix, wlo, whi);
 
   // byte offset of row r, chunk c in a tile of `rows` rows
   auto swz = [](int r, int c, int rows) {
@@ -554,7 +588,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int c = i - r * CH;
       const bool ok = k0 + r < hi && c * 8 < D;
       const size_t off =
-          ok ? (((size_t)b * S + k0 + r) * KV + kvh) * D + c * 8 : 0;
+          ok ? (((size_t)b * Skv + k0 + r) * KV + kvh) * D + c * 8 : 0;
       const int at = buf * NB * TK + swz(r, c, kWK);
       attn::cp_async16(sK + at, k + off, ok);
       attn::cp_async16(sV + at, v + off, ok);
@@ -604,10 +638,12 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_wait_all();
       fence_regs(s);
 
-      // a stage every row of the warpgroup sees whole needs no mask
-      const bool whole = k0 + kWK <= whi &&
-                         (!causal || k0 + kWK - 1 <= qw) &&
-                         (window < 0 || k0 > qw + 63 - window);
+      // a stage every row of the warpgroup sees whole needs no mask: one
+      // inside every row's band, or inside the prefix
+      bool whole = k0 + kWK <= whi &&
+                   (!causal || k0 + kWK - 1 <= qw) &&
+                   (window < 0 || k0 > qw + 63 - window);
+      if constexpr (PREFIX) whole = whole || k0 + kWK <= min(whi, prefix);
 #pragma unroll
       for (int n = 0; n < kWK / 8; ++n)
 #pragma unroll
@@ -618,8 +654,12 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (!whole) {
             const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
             const int qpos = rq0 + 8 * (e >> 1);
-            const bool ok = kpos < hi && (!causal || kpos <= qpos) &&
-                            (window < 0 || kpos > qpos - window);
+            bool ok;
+            if constexpr (PREFIX)
+              ok = visible(qpos, kpos, hi, causal, window, prefix);
+            else
+              ok = kpos < hi && (!causal || kpos <= qpos) &&
+                   (window < 0 || kpos > qpos - window);
             x = ok ? x : attn::kNegInf;
           }
           s[n][e] = x;
@@ -679,11 +719,12 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int B, int S, int H, int KV,
-                         int D, int causal, int window, float scale,
-                         float softcap, cudaStream_t stream) {
+                         void* out, void* lse, int B, int S, int Skv, int H,
+                         int KV, int D, int causal, int window, int prefix,
+                         float scale, float softcap, cudaStream_t stream) {
   const int smem = 1024 + (DP / 64) * (kWQ + 4 * kWK) * 128;
-  auto kernel = flash_wgmma_kernel<DP>;
+  auto kernel = prefix > 0 ? flash_wgmma_kernel<DP, true>
+                           : flash_wgmma_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -691,48 +732,49 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   kernel<<<grid, kWThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, H, KV, D, causal, window, scale, softcap);
+      static_cast<float*>(lse), S, Skv, H, KV, D, causal, window, prefix,
+      scale, softcap);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
-                           void* out, void* lse, int B, int S, int H, int KV,
-                           int D, int causal, int window, float scale,
-                           float softcap, cudaStream_t stream) {
+                           void* out, void* lse, int B, int S, int Skv, int H,
+                           int KV, int D, int causal, int window, int prefix,
+                           float scale, float softcap, cudaStream_t stream) {
   if (D <= 64)
-    return launch_wgmma<64>(q, k, v, out, lse, B, S, H, KV, D, causal,
-                            window, scale, softcap, stream);
+    return launch_wgmma<64>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
+                            window, prefix, scale, softcap, stream);
   if (D <= 128)
-    return launch_wgmma<128>(q, k, v, out, lse, B, S, H, KV, D, causal,
-                             window, scale, softcap, stream);
-  return launch_wgmma<256>(q, k, v, out, lse, B, S, H, KV, D, causal,
-                           window, scale, softcap, stream);
+    return launch_wgmma<128>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
+                             window, prefix, scale, softcap, stream);
+  return launch_wgmma<256>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
+                           window, prefix, scale, softcap, stream);
 }
 
 }  // namespace
 
-// q, out: (B, S, H, D); k, v: (B, S, KV, D); lse: (B, H, S) fp32. All
-// contiguous and 16-byte aligned, D a multiple of 8 up to 256. causal 0/1;
-// window < 0 turns the window off, softcap <= 0 the softcap. dtype 0 =
-// float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel). Launches on
-// `stream` and returns the CUDA error code (0 on success); does not
-// synchronise.
+// q, out: (B, S, H, D); k, v: (B, Skv, KV, D); lse: (B, H, S) fp32. All
+// contiguous and 16-byte aligned, D a multiple of 8 up to 256. causal 0/1
+// (causal needs Skv == S); window < 0 turns the window off, prefix <= 0
+// the prefix, softcap <= 0 the softcap. dtype 0 = float32 (SIMT kernel),
+// 1 = bfloat16 (wgmma kernel). Launches on `stream` and returns the CUDA
+// error code (0 on success); does not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
-                                      int B, int S, int H, int KV, int D,
-                                      int causal, int window, float scale,
-                                      float softcap, int dtype,
-                                      void* stream) {
+                                      int B, int S, int Skv, int H, int KV,
+                                      int D, int causal, int window,
+                                      int prefix, float scale, float softcap,
+                                      int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
-      H > 65535 || B > 65535)
+      H > 65535 || B > 65535 || Skv < 0 || (causal && Skv != S))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, lse, B, S, H, KV, D, causal, window,
-                           scale, softcap, st);
+    return dispatch<float>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
+                           window, prefix, scale, softcap, st);
   if (dtype == 1)
-    return dispatch_wgmma(q, k, v, out, lse, B, S, H, KV, D, causal, window,
-                          scale, softcap, st);
+    return dispatch_wgmma(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
+                          window, prefix, scale, softcap, st);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,18 @@
 """Flash attention for the training and prefill forward: causal, windowed
-and softcapped GQA self-attention with Sq == Skv; the port of
+and softcapped GQA self-attention, PaliGemma's prefix-LM mask, and
+non-causal attention of Sq queries against Skv keys (an encoder's
+self-attention, a decoder's cross-attention); the port of
 ``src/repro/kernels/flash_attention.py`` (the Pallas ``_flash_kernel``).
 
-Query token ``i`` of head ``h`` attends the keys ``j`` of KV head
-``h // G`` with ``j <= i`` (causal) and ``j > i - window`` (with a window).
-Scores are taken on ``q * scale`` in fp32 and softcapped (``c*tanh(s/c)``)
-before the mask; the softmax is online in fp32, and a row that sees no key
-gives 0, as the Pallas finalize does.
+Query token ``i`` of head ``h`` attends the keys ``j < Skv`` of KV head
+``h // G`` with ``j <= i`` (causal) and ``j > i - window`` (with a
+window), or with ``j < prefix_len`` whatever the band says (the
+reference's prefix-LM rule, ``src/repro/models/layers.py:370-379``).
+Causal attention needs Sq == Skv, as the reference's kernel does; the
+non-causal kernel masks the keys past Skv, as the Pallas kernel masks
+those past ``kv_len``. Scores are taken on ``q * scale`` in fp32 and
+softcapped (``c*tanh(s/c)``) before the mask; the softmax is online in
+fp32, and a row that sees no key gives 0, as the Pallas finalize does.
 
 * ``flash_attention`` — the wrapper, a ``torch.autograd.Function``. Its
   forward launches the hand-written kernel ``csrc/flash_attention.cu``
@@ -43,15 +49,18 @@ EMPTY_LSE = 1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _key_range(q0: int, q1: int, S: int, causal: bool,
-               window: Optional[int]) -> Tuple[int, int]:
-    """The keys [lo, hi) that query rows [q0, q1) can see."""
+def _key_range(q0: int, q1: int, Skv: int, causal: bool,
+               window: Optional[int], prefix_len: int) -> Tuple[int, int]:
+    """The keys [lo, hi) that query rows [q0, q1) can see: the band, and
+    with a prefix every key below ``prefix_len`` as well."""
     lo = max(0, q0 - window + 1) if window is not None else 0
-    hi = min(S, q1) if causal else S
+    hi = min(Skv, q1) if causal else Skv
+    if prefix_len:
+        lo, hi = 0, max(hi, min(prefix_len, Skv))
     return lo, hi
 
 
-def _mask(q0, q1, k0, k1, causal, window, device):
+def _mask(q0, q1, k0, k1, causal, window, prefix_len, device):
     qpos = torch.arange(q0, q1, device=device)[:, None]
     kpos = torch.arange(k0, k1, device=device)[None, :]
     m = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=device)
@@ -59,21 +68,44 @@ def _mask(q0, q1, k0, k1, causal, window, device):
         m = kpos <= qpos
     if window is not None:
         m = m & (kpos > qpos - window)
+    if prefix_len:
+        m = m | (kpos < prefix_len)
     return m
+
+
+def _check_shapes(q, k, v, causal: bool, prefix_len: int) -> None:
+    """What neither route takes raises here."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"q (B,Sq,H,D) and k, v (B,Skv,KV,D) expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if causal and k.shape[1] != Sq:
+        raise ValueError(f"causal attention needs Sq == Skv (the "
+                         f"reference's kernel takes no offset): q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
+                          prefix_len: int = 0,
                           block_q: int = 128, block_k: int = 128
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (B, S, H, D); k, v: (B, S, KV, D), H % KV == 0. Returns (out (B,
-    S, H, D) in q's dtype, lse (B, H, S) fp32), where lse is the
-    log-sum-exp of each row's visible scores (``EMPTY_LSE`` for a row that
-    sees none). Differentiable by autograd."""
+    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D), H % KV == 0 (Sq == Skv
+    when causal). Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq)
+    fp32), where lse is the log-sum-exp of each row's visible scores
+    (``EMPTY_LSE`` for a row that sees none). Differentiable by
+    autograd."""
+    _check_shapes(q, k, v, causal, prefix_len)
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     outs, lses = [], []
@@ -84,13 +116,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, KV, G, n), NEG_INF, device=q.device)
         l = torch.zeros((B, KV, G, n), device=q.device)
         acc = torch.zeros((B, KV, G, n, D), device=q.device)
-        lo, hi = _key_range(q0, q1, S, causal, window)
+        lo, hi = _key_range(q0, q1, Skv, causal, window, prefix_len)
         for k0 in range(lo, hi, block_k):
             k1 = min(hi, k0 + block_k)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qt, k[:, k0:k1].float())
             if softcap:
                 s = softcap * torch.tanh(s / softcap)
-            mask = _mask(q0, q1, k0, k1, causal, window, q.device)
+            mask = _mask(q0, q1, k0, k1, causal, window, prefix_len,
+                         q.device)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
@@ -110,25 +143,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              block_q: int = 128):
+                              prefix_len: int = 0, block_q: int = 128):
     """The gradient of ``flash_attention_plain``'s output: (dq, dk, dv) in
-    the dtypes of q, k and v, for ``dout`` (B, S, H, D) and the forward's
+    the dtypes of q, k and v, for ``dout`` (B, Sq, H, D) and the forward's
     ``out`` and ``lse``. Per query tile it recomputes the visible scores,
     the probabilities ``exp(s - lse)`` and, with a softcap, the factor
     ``1 - tanh^2`` of its derivative; dk and dv sum in fp32 over the
     tiles and over the G query heads of each KV head."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     kf, vf = k.float(), v.float()
     dq = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((B, S, KV, D), dtype=torch.float32, device=q.device)
-    dv = torch.zeros((B, S, KV, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skv, KV, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Skv, KV, D), dtype=torch.float32, device=q.device)
     for q0 in range(0, S, block_q):
         q1 = min(S, q0 + block_q)
         n = q1 - q0
-        lo, hi = _key_range(q0, q1, S, causal, window)
+        lo, hi = _key_range(q0, q1, Skv, causal, window, prefix_len)
         qt = q[:, q0:q1].float().reshape(B, n, KV, G, D)
         dot = dout[:, q0:q1].float().reshape(B, n, KV, G, D)
         ot = out[:, q0:q1].float().reshape(B, n, KV, G, D)
@@ -138,7 +171,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
         if softcap:
             t = torch.tanh(s / softcap)
             s = softcap * t
-        mask = _mask(q0, q1, lo, hi, causal, window, q.device)
+        mask = _mask(q0, q1, lo, hi, causal, window, prefix_len, q.device)
         L = lse[:, :, q0:q1].reshape(B, KV, G, n)
         p = torch.where(mask, torch.exp(s - L[..., None]), 0.0)
         dv[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, dot)
@@ -163,14 +196,14 @@ def flash_design(dtype: torch.dtype) -> str:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_args(q, k, v, window) -> None:
+def _check_cuda_args(q, k, v, causal, window, prefix_len) -> None:
     """Everything the kernel does not take raises here, before a pointer
     crosses into C."""
     for name, t in {"q": q, "k": k, "v": v}.items():
@@ -186,15 +219,8 @@ def _check_cuda_args(q, k, v, window) -> None:
                         f"bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("k and v must have q's dtype")
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"q (B,S,H,D) and k, v (B,S,KV,D) expected, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, S, H, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D \
-            or H % k.shape[2]:
-        raise ValueError(f"shapes do not match (self-attention, Sq == "
-                         f"Skv): q {tuple(q.shape)}, k {tuple(k.shape)}")
+    _check_shapes(q, k, v, causal, prefix_len)
+    B, _, H, D = q.shape
     if D % 8 or D > 256:
         raise ValueError(f"head dim must be a multiple of 8 up to 256, "
                          f"got {D}")
@@ -204,18 +230,19 @@ def _check_cuda_args(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal, window, softcap):
+def _launch(q, k, v, causal, window, softcap, prefix_len):
     """K3 on the current stream, in ``flash_design(q.dtype)``: (out,
     lse)."""
-    _check_cuda_args(q, k, v, window)
+    _check_cuda_args(q, k, v, causal, window, prefix_len)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, k.shape[2], D, int(causal),
-            -1 if window is None else int(window), 1.0 / math.sqrt(D),
+            lse.data_ptr(), B, S, k.shape[1], H, k.shape[2], D, int(causal),
+            -1 if window is None else int(window), int(prefix_len),
+            1.0 / math.sqrt(D),
             float(softcap or 0.0), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -226,7 +253,8 @@ def _launch(q, k, v, causal, window, softcap):
 
 def flash_attention_forward(q, k, v, *, causal: bool = True,
                             window: Optional[int] = None,
-                            softcap: Optional[float] = None):
+                            softcap: Optional[float] = None,
+                            prefix_len: int = 0):
     """(out, lse) without autograd: the kernel on CUDA tensors (one launch
     counted in ``flash_attention.launches``), the plain version on CPU
     tensors."""
@@ -236,46 +264,49 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
                 raise ValueError(f"mixed devices: q on cpu, an input on "
                                  f"{t.device}")
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    res = _launch(q, k, v, causal, window, softcap)
+    res = _launch(q, k, v, causal, window, softcap, prefix_len)
     flash_attention.launches += 1
     return res
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, prefix_len):
         out, lse = flash_attention_forward(q, k, v, causal=causal,
-                                           window=window, softcap=softcap)
+                                           window=window, softcap=softcap,
+                                           prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (causal, window, softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        prefix_len=prefix_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.opts
-        dq, dk, dv = flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, causal=causal, window=window,
-            softcap=softcap)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                               **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """Flash attention of (B, S, H, D) queries against (B, S, KV, D) keys
-    and values (the same positions), causal or not, with an optional
-    sliding ``window`` and ``softcap``. Returns (B, S, H, D).
+                    softcap: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """Flash attention of (B, Sq, H, D) queries against (B, Skv, KV, D)
+    keys and values, causal (Sq == Skv, the same positions) or not, with
+    an optional sliding ``window``, ``softcap`` and a prefix of
+    ``prefix_len`` keys every query sees. Returns (B, Sq, H, D).
 
     CPU tensors take ``flash_attention_plain``. CUDA tensors launch the
     kernel on the current stream (no synchronisation) and count one
     launch in ``flash_attention.launches``; whatever the kernel does not
     take raises. The gradient is ``flash_attention_bwd_plain``."""
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap,
+                                 prefix_len)
 
 
 flash_attention.launches = 0

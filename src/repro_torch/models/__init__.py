@@ -1,19 +1,24 @@
 """repro_torch.models — the port's model code: config, parameter specs and
 the weight bridge (``common``), layers, chunked attention, the RG-LRU
-block and the RWKV6 mixers, the MoE layer, the LM training forward and
-loss, the LM decode step on the paged and gather planes, and the model API
+block and the RWKV6 mixers, the MoE layer, the LM training forward (with
+the image-patch prefix) and loss, the LM decode step on the paged and
+gather planes, the encoder-decoder family (``encdec``), and the model API
 (``api``)."""
-from .api import (cache_leaf_dtype, decode_cache_shapes, decode_step,
-                  forward, init_decode_cache, loss_fn)
+from .api import (batch_shapes, cache_leaf_dtype, decode_cache_shapes,
+                  decode_step, forward, init_decode_cache, loss_fn,
+                  model_spec)
 from .common import (ModelConfig, ParamSpec, init_params, params_from_numpy,
                      tree_paths)
+from .encdec import (decode_train, encdec_cache_shapes, encdec_decode_step,
+                     encdec_forward, encdec_prefill_cache, encdec_spec,
+                     encode)
 from .lm import (cache_shapes, init_cache, lm_decode_step, lm_forward,
                  lm_loss, lm_spec, unit_pattern)
 
-model_spec = lm_spec
-
 __all__ = ["ModelConfig", "ParamSpec", "init_params", "params_from_numpy",
-           "tree_paths", "cache_leaf_dtype", "cache_shapes",
-           "decode_cache_shapes", "decode_step", "forward", "init_cache",
-           "init_decode_cache", "lm_decode_step", "lm_forward", "lm_loss",
-           "loss_fn", "lm_spec", "model_spec", "unit_pattern"]
+           "tree_paths", "batch_shapes", "cache_leaf_dtype", "cache_shapes",
+           "decode_cache_shapes", "decode_step", "decode_train",
+           "encdec_cache_shapes", "encdec_decode_step", "encdec_forward",
+           "encdec_prefill_cache", "encdec_spec", "encode", "forward",
+           "init_cache", "init_decode_cache", "lm_decode_step", "lm_forward",
+           "lm_loss", "loss_fn", "lm_spec", "model_spec", "unit_pattern"]

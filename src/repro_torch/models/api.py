@@ -1,33 +1,55 @@
-"""Model API over the architectures the port has; mirrors
-``src/repro/models/api.py``: ``forward`` and ``loss_fn`` for training and
-prefill of the decoder-only LM families, and decode: the cache layout
-(``decode_cache_shapes``), its leaf dtypes (``cache_leaf_dtype``: the
-recurrent state ``S`` and ``h`` in fp32, the rest in the model dtype), the
-zero cache (``init_decode_cache``) and ``decode_step``. Batch dict keys:
-``tokens`` and ``targets`` (and an optional ``mask``); the
-encoder-decoder family and the image-patch frontend raise."""
+"""Model API over every architecture the port has; mirrors
+``src/repro/models/api.py``. One entry point per lifecycle stage,
+dispatching on ``cfg.family``:
+
+* ``model_spec(cfg)``                 — ParamSpec tree
+* ``forward(cfg, params, batch)``     — logits for training / prefill
+* ``loss_fn(cfg, params, batch)``     — scalar LM loss (next-token CE)
+* ``decode_cache_shapes`` / ``init_decode_cache`` / ``decode_step`` —
+  the cache layout, the zero cache (leaves in ``cache_leaf_dtype``: the
+  recurrent state ``S`` and ``h`` in fp32, the rest in the model dtype)
+  and one decode step
+* ``batch_shapes(cfg, batch, seq)``   — the shapes of a training batch
+
+Batch dict keys: ``tokens``/``targets`` always (and an optional
+``mask``); ``patches`` for vlm (precomputed patch embeddings, frontend
+stub); ``frames`` for the encoder-decoder family (precomputed frame
+embeddings, frontend stub)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
+from . import encdec as ED
 from . import lm as LM
 from .common import ModelConfig
 
 
+def model_spec(cfg: ModelConfig) -> Dict:
+    if cfg.family == "encdec":
+        return ED.encdec_spec(cfg)
+    return LM.lm_spec(cfg)
+
+
 def forward(cfg: ModelConfig, params, batch: Dict, *,
             last_logit_only: bool = False):
-    if cfg.family == "encdec" or cfg.frontend is not None:
-        raise NotImplementedError(
-            "the encoder-decoder and image-prefix forwards are not ported")
+    if cfg.family == "encdec":
+        return ED.encdec_forward(cfg, params, batch["tokens"],
+                                 batch["frames"],
+                                 last_logit_only=last_logit_only)
     return LM.lm_forward(cfg, params, batch["tokens"],
+                         patches=batch.get("patches"),
                          last_logit_only=last_logit_only)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict):
     logits = forward(cfg, params, batch)
-    return LM.lm_loss(cfg, logits, batch["targets"], batch.get("mask"))
+    targets = batch["targets"]
+    if cfg.frontend == "patch_embed" and logits.shape[1] != targets.shape[1]:
+        # drop the image-prefix positions: only text positions carry loss
+        logits = logits[:, -targets.shape[1]:]
+    return LM.lm_loss(cfg, logits, targets, batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -35,14 +57,11 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict):
 # ---------------------------------------------------------------------------
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
+def decode_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                        enc_len: int = 0) -> Dict:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder decode is not ported")
-
-
-def decode_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
-    _decoder_only(cfg)
+        return ED.encdec_cache_shapes(cfg, batch, max_seq,
+                                      enc_len or cfg.frontend_len)
     return LM.cache_shapes(cfg, batch, max_seq)
 
 
@@ -52,9 +71,10 @@ def cache_leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     return torch.float32 if name in ("S", "h") else cfg.dtype
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device: torch.device | str):
-    """The zero decode cache of ``batch`` slots of ``max_seq`` positions,
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      enc_len: int = 0, *, device: torch.device | str):
+    """The zero decode cache of ``batch`` slots of ``max_seq`` positions
+    (and, for the encoder-decoder family, ``enc_len`` encoder positions),
     laid out as ``decode_cache_shapes``, each leaf in ``cache_leaf_dtype``,
     on ``device``."""
     def walk(tree, name=""):
@@ -63,7 +83,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         return torch.zeros(tree, dtype=cache_leaf_dtype(cfg, name),
                            device=device)
 
-    return walk(decode_cache_shapes(cfg, batch, max_seq))
+    return walk(decode_cache_shapes(cfg, batch, max_seq, enc_len))
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
@@ -73,7 +93,35 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ``pos``, real lengths ``seq_lens``; G and M layers only). pos: one
     int shared by every row or (B,) per slot. ``paged_tables`` (B, NW):
     ``cache`` is the KV pool tree and decode runs straight out of the pool
-    rows each row's block table names."""
-    _decoder_only(cfg)
+    rows each row's block table names. The encoder-decoder family decodes
+    one token with one shared position from ``encdec_prefill_cache``'s
+    cache, and raises on the rest, as the reference does."""
+    if cfg.family == "encdec":
+        if seq_lens is not None or tokens.shape[1] != 1 \
+                or paged_tables is not None:
+            raise NotImplementedError(
+                "chunked/paged decode is decoder-LM only (encdec is S=1)")
+        return ED.encdec_decode_step(cfg, params, cache, tokens, pos)
     return LM.lm_decode_step(cfg, params, cache, tokens, pos,
                              seq_lens=seq_lens, paged_tables=paged_tables)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+def batch_shapes(cfg: ModelConfig, global_batch: int, seq_len: int
+                 ) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """{name: (shape, dtype)} for one *training* batch."""
+    out: Dict[str, Tuple[Tuple[int, ...], Any]] = {
+        "tokens": ((global_batch, seq_len), torch.int32),
+        "targets": ((global_batch, seq_len), torch.int32),
+    }
+    if cfg.frontend == "patch_embed":
+        out["patches"] = ((global_batch, cfg.frontend_len, cfg.frontend_dim),
+                          cfg.dtype)
+    elif cfg.frontend == "audio_frames":
+        out["frames"] = ((global_batch, cfg.frontend_len, cfg.d_model),
+                         cfg.dtype)
+    return out

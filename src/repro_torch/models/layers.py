@@ -3,12 +3,13 @@ attention layer and the MLP; mirrors ``src/repro/models/layers.py``. Plain
 functions over param dicts of tensors; fp32 where numerics demand it
 (norms, softmax, rope), the model dtype elsewhere.
 
-Ported so far: the dense layers; the training/prefill mode of
-``attention`` (no cache: the flash-attention kernel on CUDA, ``_sdpa`` or
-``chunked_attention`` on CPU); and its decode modes: paged (chunk written
-into pool rows, attention out of the pool), and the gather plane's
-per-slot and bulk modes over contiguous caches. The cross-attention mode
-is not ported yet.
+Every mode of the reference's ``attention`` but its tensor-parallel ones:
+training/prefill (no cache: the flash-attention kernel on CUDA, ``_sdpa``
+or ``chunked_attention`` on CPU), causal, bidirectional (an encoder) or
+with an image prefix; the decode modes: paged (chunk written into pool
+rows, attention out of the pool), and the gather plane's per-slot and
+bulk modes over contiguous caches; and cross-attention over an encoder's
+precomputed keys and values (``cross_kv_spec``, ``make_cross_kv``).
 """
 from __future__ import annotations
 
@@ -156,19 +157,18 @@ def _use_chunked(cfg: ModelConfig, Sq: int) -> bool:
 def _self_attention(cfg: ModelConfig, q, k, v, *, window, bidirectional,
                     prefix_len):
     """Training/prefill attention of (B,S,H,D) queries against the same
-    positions' (B,S,KV,D) keys and values. ``attn_impl="auto"`` on CUDA
-    tensors takes the flash-attention kernel (causal only: no encoder or
-    image prefix is ported); otherwise the reference's rule: ``_sdpa``
-    with a dense mask, or ``chunked_attention``."""
+    positions' (B,S,KV,D) keys and values: causal with an optional
+    ``window`` and a ``prefix_len`` every query sees, or
+    ``bidirectional``. ``attn_impl="auto"`` on CUDA tensors takes the
+    flash-attention kernel, which raises on what it does not take;
+    otherwise the reference's rule: ``_sdpa`` with a dense mask, or
+    ``chunked_attention``."""
     Sq = q.shape[1]
     if cfg.attn_impl == "auto" and q.device.type == "cuda":
-        if bidirectional or prefix_len:
-            raise NotImplementedError(
-                "the flash-attention kernel route is causal self-attention "
-                "only: bidirectional and prefix attention are not ported")
         return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True, window=window,
-                               softcap=cfg.attn_logit_softcap)
+                               v.contiguous(), causal=not bidirectional,
+                               window=window, softcap=cfg.attn_logit_softcap,
+                               prefix_len=prefix_len)
     if _use_chunked(cfg, Sq):
         return chunked_attention(
             q, k, v, causal=not bidirectional, window=window,
@@ -254,15 +254,44 @@ def _write_bulk(cache, start, val) -> None:
     cache[:, s0:s0 + Sq] = val
 
 
+def _cross_attention(cfg: ModelConfig, q, k, v):
+    """(B,Sq,H,D) queries against an encoder's (B,Skv,KV,D) keys and
+    values, every key visible, no RoPE. A chunk (Sq > 1) takes the
+    flash-attention kernel on CUDA tensors under ``attn_impl="auto"``; a
+    one-token decode takes ``decode_attention`` (the kernel on CUDA
+    tensors, its plain version on CPU tensors) with every row's valid
+    length the encoder's, unless ``decode_kernel="xla"``; the rest
+    ``_sdpa`` with the all-true mask, as the reference does."""
+    B, Sq = q.shape[:2]
+    Skv = k.shape[1]
+    if Sq > 1 and cfg.attn_impl == "auto" and q.device.type == "cuda":
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=False,
+                               softcap=cfg.attn_logit_softcap)
+    if Sq == 1 and cfg.decode_kernel != "xla":
+        valid = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
+        return decode_attention(q[:, 0].contiguous(), k.contiguous(),
+                                v.contiguous(), valid,
+                                softcap=cfg.attn_logit_softcap)[:, None]
+    mask = torch.ones((1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
+    return _sdpa(cfg, q, k, v, mask)
+
+
 def attention(cfg: ModelConfig, params, x, *, positions, window=None,
               cache: Optional[Dict] = None, cache_pos=None,
               cache_valid_len=None, paged: Optional[Dict] = None,
-              bidirectional: bool = False, prefix_len: int = 0):
+              cross_kv=None, bidirectional: bool = False,
+              prefix_len: int = 0):
     """Attention layer (proj → rope → attend → proj). Returns (out, cache).
 
       * training/prefill: ``cache=None``; causal (or bidirectional)
-        self-attention over the chunk with an optional sliding ``window``,
-        routed by ``_self_attention``. Returns (out, None).
+        self-attention over the chunk with an optional sliding ``window``
+        and image prefix of ``prefix_len`` positions, routed by
+        ``_self_attention``. Returns (out, None).
+      * cross: ``cross_kv`` = (k, v), an encoder's (B, Skv, KV, D) keys
+        and values from ``make_cross_kv``; no RoPE, every key visible,
+        routed by ``_cross_attention``. Returns (out, cache) with the
+        ``cache`` given, untouched.
 
     The decode modes write the caches IN PLACE (the reference returns new
     ones):
@@ -286,6 +315,12 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
     "xla" route is ``_sdpa``, which casts the probabilities to v's dtype:
     in bf16 it parts from the kernel there.)"""
     B, Sq = x.shape[:2]
+    if cross_kv is not None:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+        out = _cross_attention(cfg, q, *cross_kv)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
     q, k, v = _qkv(cfg, params, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -329,6 +364,23 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
         out = _sdpa(cfg, q, ck, cv, mask)
     return (torch.einsum("bshk,hkd->bsd", out, params["wo"]),
             {"k": ck, "v": cv})
+
+
+def cross_kv_spec(cfg: ModelConfig):
+    """Encoder-side projections for cross attention (computed once)."""
+    return {
+        "wk": p((cfg.d_model, cfg.kv_heads, cfg.d_head),
+                ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wv": p((cfg.d_model, cfg.kv_heads, cfg.d_head),
+                ("embed", "kv_heads", "head_dim"), init="scaled"),
+    }
+
+
+def make_cross_kv(params, enc_out):
+    """(k, v), each (B, T, KV, D), of an encoder output (B, T, d_model)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -10,20 +10,24 @@ reference scans over the repeat axis, the port loops over it.
 Layer kinds: G (global attention + dense MLP), L (local, windowed
 attention + dense MLP), M (global attention + MoE MLP), R (RG-LRU
 recurrent block + dense MLP) and W (RWKV6 time-mix + channel-mix). The
-training/prefill forward ``lm_forward`` and ``lm_loss`` run all five. The
-decode step runs them all one token at a time on the gather plane; chunks
-(S > 1) and the paged plane need absolute-position KV caches, G and M
-layers only, and raise elsewhere, as the reference does.
+training/prefill forward ``lm_forward`` and ``lm_loss`` run all five, and
+for the image-prefix (vlm) family take the frontend's patch embeddings as
+a bidirectional prefix (PaliGemma's prefix-LM). The decode step is
+text-only, as the reference's is; it runs every kind one token at a time
+on the gather plane; chunks (S > 1) and the paged plane need
+absolute-position KV caches, G and M layers only, and raise elsewhere, as
+the reference does.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .common import ModelConfig, ParamSpec, tree_map
+from .common import ModelConfig, ParamSpec, p, tree_map
 from .moe import moe, moe_spec
 from .recurrent import (rglru_block, rglru_block_spec, rglru_state_shape,
                         rwkv_channel_mix, rwkv_channel_mix_spec,
@@ -85,8 +89,6 @@ def unit_pattern(cfg: ModelConfig) -> Tuple[str, int, str]:
 
 
 def lm_spec(cfg: ModelConfig) -> Dict:
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported")
     pat, n_rep, tail = unit_pattern(cfg)
     spec: Dict[str, Any] = {"embed": L.embed_spec(cfg)}
     unit = {f"{i}_{k}": _sublayer_spec(cfg, k) for i, k in enumerate(pat)}
@@ -94,6 +96,9 @@ def lm_spec(cfg: ModelConfig) -> Dict:
     for i, k in enumerate(tail):
         spec[f"tail_{i}_{k}"] = _sublayer_spec(cfg, k)
     spec["ln_f"] = L.norm_spec(cfg)
+    if cfg.frontend == "patch_embed":
+        spec["frontend_proj"] = p((cfg.frontend_dim, cfg.d_model),
+                                  (None, "embed"), init="scaled")
     return spec
 
 
@@ -108,9 +113,10 @@ def _unit_keys(pat: str) -> List[str]:
 
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
-                    paged=None):
+                    paged=None, prefix_len: int = 0):
     """One sublayer. Without ``cache`` the training/prefill form (L and R
-    layers see ``cfg.window``); with it a decode, which writes the layer's
+    layers see ``cfg.window``; attention sees an image prefix of
+    ``prefix_len`` positions); with it a decode, which writes the layer's
     cache (or pool pages) in place: G, L and M layers their KV, R and W
     layers their recurrent state, each leaf cast to its own dtype, as the
     reference casts the state it returns. Returns h."""
@@ -140,7 +146,8 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
     attn_out, _ = L.attention(cfg, prm["attn"], x, positions=positions,
                               window=window, cache=cache,
                               cache_pos=cache_pos,
-                              cache_valid_len=cache_valid_len, paged=paged)
+                              cache_valid_len=cache_valid_len, paged=paged,
+                              prefix_len=prefix_len)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
@@ -163,23 +170,35 @@ def _write_state(cache: Dict, state: Dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def lm_forward(cfg: ModelConfig, params, tokens, *,
+def lm_forward(cfg: ModelConfig, params, tokens, *, patches=None,
                last_logit_only: bool = False):
-    """tokens: (B,S) int. Returns logits (B,S,vocab), or (B,1,vocab) with
-    ``last_logit_only``. Each repeat of the stacked unit runs under
-    activation checkpointing (``torch.utils.checkpoint``, non-reentrant),
-    where the reference wraps its scan body in ``jax.checkpoint``: its
-    inputs are kept and its inside is recomputed in the backward. The tail
-    layers are not checkpointed, as in the reference."""
+    """tokens: (B,S) int. For the image-prefix (vlm) family, ``patches``
+    (B,P,frontend_dim) are projected, scaled by sqrt(d_model) under
+    ``embed_scale`` and prepended as a bidirectional prefix of P
+    positions. Returns logits (B,S',vocab), S' = P + S for vlm, or
+    (B,1,vocab) with ``last_logit_only``. Each repeat of the stacked unit
+    runs under activation checkpointing (``torch.utils.checkpoint``,
+    non-reentrant), where the reference wraps its scan body in
+    ``jax.checkpoint``: its inputs are kept and its inside is recomputed
+    in the backward. The tail layers are not checkpointed, as in the
+    reference."""
     pat, n_rep, tail = unit_pattern(cfg)
     h = L.embed(cfg, params["embed"], tokens)
+    prefix_len = 0
+    if cfg.frontend == "patch_embed":
+        assert patches is not None, "the vlm family needs patches"
+        pe = patches.to(cfg.dtype) @ params["frontend_proj"]
+        if cfg.embed_scale:
+            pe = pe * torch.tensor(math.sqrt(cfg.d_model), dtype=pe.dtype)
+        h = torch.cat([pe, h], dim=1)
+        prefix_len = patches.shape[1]
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
 
     def unit(h, prm_r):
         for key in _unit_keys(pat):
             h = _apply_sublayer(cfg, key.split("_")[1], prm_r[key], h,
-                                positions=positions)
+                                positions=positions, prefix_len=prefix_len)
         return h
 
     if n_rep > 0:
@@ -191,7 +210,7 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
                            use_reentrant=False)
     for i, k in enumerate(tail):
         h = _apply_sublayer(cfg, k, params[f"tail_{i}_{k}"], h,
-                            positions=positions)
+                            positions=positions, prefix_len=prefix_len)
     if last_logit_only:
         h = h[:, -1:]
     h = L.norm(cfg, params["ln_f"], h)

@@ -63,9 +63,8 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..models.api import init_decode_cache
+from ..models.api import decode_cache_shapes, init_decode_cache
 from ..models.common import ModelConfig, tree_map, tree_paths
-from ..models.lm import cache_shapes
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
 from .disk_pool import DiskBlockPool
@@ -142,7 +141,7 @@ class ServeEngine:
         # KV leaves as meta tensors: shapes and dtypes, no memory
         template = tree_map(
             lambda s: torch.empty(s, dtype=cfg.dtype, device="meta"),
-            cache_shapes(cfg, 1, 8))
+            decode_cache_shapes(cfg, 1, 8))
         for path, _ in tree_paths(template):
             assert path[-1] in ("k", "v"), (
                 "ServeEngine supports uniform-KV patterns; got leaf "

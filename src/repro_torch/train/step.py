@@ -49,11 +49,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig):
     _check(tc)
 
     def value_and_grad(params, batch):
-        """(loss, {path: gradient}) of one (micro)batch."""
+        """(loss, {path: gradient}) of one (micro)batch; a leaf the loss
+        does not use (the encoder-decoder's ``cross_q`` k/v projections)
+        gets a zero gradient, as the reference's autodiff gives it."""
         leaves = {path: t.detach().requires_grad_(True)
                   for path, t in tree_paths(params)}
         loss = loss_fn(cfg, unflatten(leaves), batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves.values(), grads)]
         return loss.detach(), dict(zip(leaves, grads))
 
     def compute_grads(params, batch):

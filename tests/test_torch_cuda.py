@@ -32,7 +32,8 @@ pytestmark = pytest.mark.cuda
 
 # (B, S, H, KV, D, bt, NW, softcap): the reference test's cases, the main
 # path's decode and prefill shapes, and odd sizes (D=8 smoke heads, bt=5,
-# D=256 with its larger shared-memory tile)
+# D=256 with its larger shared-memory tile); then paligemma-3b's heads (G=8
+# over one KV head of D=256), a decode step and a prefill chunk of 64
 CASES = [
     (2, 1, 4, 2, 64, 8, 8, None),
     (3, 4, 4, 1, 64, 8, 6, None),
@@ -42,6 +43,8 @@ CASES = [
     (4, 64, 28, 4, 128, 16, 40, None),
     (3, 5, 7, 1, 8, 5, 7, 30.0),
     (2, 9, 4, 2, 256, 16, 5, None),
+    (4, 1, 8, 1, 256, 16, 40, None),
+    (2, 64, 8, 1, 256, 16, 40, None),
 ]
 
 
@@ -208,6 +211,8 @@ DECODE_CASES = [
     (4, 2048, 32, 4, 128, None, 30.0, [2048, 1000, 1, 0]),
     (8, 2048, 16, 1, 256, None, None,
      [2048, 1000, 1, 2048, 517, 2048, 33, 1500]),
+    (8, 448, 8, 8, 64, None, None, [448, 1, 100, 300, 17, 448, 64, 250]),
+    (8, 1500, 8, 8, 64, None, None, [1500] * 8),
 ]
 
 
@@ -393,6 +398,82 @@ def test_flash_wrapper_raises_on_what_kernel_does_not_take(dev):
                         v[..., :12].contiguous())
     with pytest.raises(ValueError, match="Sq == Skv"):
         flash_attention(q[:, :64].contiguous(), k, v)
+
+
+# (B, Sq, Skv, H, KV, D, causal, window, softcap, prefix_len): the masks
+# of the encoder-decoder and image-prefix paths. Non-causal with Sq == Skv
+# (an encoder) and Sq != Skv both ways with ragged key tails (a decoder's
+# cross-attention: whisper's 448 queries over 1500 frames at a short B),
+# with a softcap; PaliGemma's prefix-LM mask with a prefix off the 64-key
+# stage (100) and on it (128), MQA at D=256, with a window, and a prefix
+# longer than the sequence (every key visible)
+FLASH_MASK_CASES = [
+    (1, 128, 128, 4, 4, 64, False, None, None, 0),
+    (2, 37, 100, 4, 4, 64, False, None, None, 0),
+    (1, 100, 37, 2, 1, 64, False, None, 30.0, 0),
+    (1, 448, 1500, 8, 8, 64, False, None, None, 0),
+    (2, 300, 300, 8, 1, 256, True, None, None, 100),
+    (1, 256, 256, 8, 1, 256, True, None, None, 128),
+    (1, 200, 200, 4, 2, 64, True, 32, None, 150),
+    (2, 64, 64, 2, 1, 32, True, None, 50.0, 200),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_MASK_CASES)
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+def test_flash_kernel_masks_match_plain(dev, case, dtype, atol):
+    """The prefix-LM and non-causal (Sq != Skv) masks under the bars of
+    ``test_flash_kernel_matches_plain``: out within atol, the lse within
+    1e-4 (f32) or 1e-3 (bf16); the gradients through the Function
+    against autograd of the plain forward (f32, 1e-4 of each gradient's
+    largest) or against the plain backward fed the plain forward (bf16,
+    2e-2)."""
+    B, Sq, Skv, H, KV, D, causal, window, softcap, prefix = case
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(dev, getattr(torch, dtype)) for s in
+               [(B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)])
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix)
+    before = flash_attention.launches
+    got, klse = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, lse = flash_attention_plain(q, k, v, **kw)
+    assert got.shape == (B, Sq, H, D) and klse.shape == (B, H, Sq)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert (klse - lse).abs().max().item() <= (
+        1e-4 if dtype == "float32" else 1e-3)
+    dout = torch.randn(got.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(q.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, **kw), leaves,
+                                dout)
+    if dtype == "float32":
+        ref = torch.autograd.grad(flash_attention_plain(*leaves, **kw)[0],
+                                  leaves, dout)
+        rtol = 1e-4
+    else:
+        ref = flash_attention_bwd_plain(q, k, v, want, lse, dout, **kw)
+        rtol = 2e-2
+    for g, r in zip(grads, ref):
+        assert g.shape == r.shape
+        assert (g.float() - r.float()).abs().max().item() <= rtol * max(
+            r.float().abs().max().item(), 1e-30)
+
+
+def test_flash_wrapper_raises_on_masks_kernel_does_not_take(dev):
+    q, k, v = (torch.zeros(s, device=dev) for s in
+               [(1, 37, 2, 64), (1, 100, 2, 64), (1, 100, 2, 64)])
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention(q, k, v, causal=True, prefix_len=10)
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention(q, q, q, prefix_len=-1)
+    assert flash_attention.launches == before
 
 
 # (B, T, W): the reference test's cases, a ragged T below and above the

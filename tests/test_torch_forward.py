@@ -23,7 +23,8 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models import loss_fn as jax_loss_fn  # noqa: E402
 from repro.models import model_spec as jax_model_spec  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.models import (forward, lm_forward, loss_fn,  # noqa: E402
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_decode_cache, lm_forward, loss_fn,
                                 params_from_numpy)
 
 ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"]
@@ -92,12 +93,20 @@ def test_last_logit_only():
 
 
 def test_unported_families_raise():
-    """The encoder-decoder family still raises; the M (MoE) layer kind,
-    which raised until it was ported, now gives the reference's logits
-    and loss (moonshot smoke, every layer M)."""
-    cfg = configs.get("qwen2_7b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        forward(cfg.replace(family="encdec"), {}, {"tokens": None})
+    """What raises is what the reference refuses too: the encoder-decoder
+    family's ``decode_step`` on a chunk or a block table (its forward and
+    one-token decode are ported: tests/test_torch_encdec.py). The M (MoE)
+    layer kind, which raised until it was ported, now gives the
+    reference's logits and loss (moonshot smoke, every layer M)."""
+    cfg = configs.get("whisper_base", smoke=True).replace(
+        dtype=torch.float32)
+    cache = init_decode_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec is S=1"):
+        decode_step(cfg, {}, cache, torch.zeros((1, 2), dtype=torch.int32),
+                    0)
+    with pytest.raises(NotImplementedError, match="encdec is S=1"):
+        decode_step(cfg, {}, cache, torch.zeros((1, 1), dtype=torch.int32),
+                    0, paged_tables=torch.zeros((1, 2), dtype=torch.int32))
     jcfg, tcfg, np_params, tparams = _model("moonshot_v1_16b_a3b")
     assert set(tcfg.layer_pattern) == {"M"}
     _compare(jcfg, tcfg, np_params, tparams, _batch(jcfg, 24, seed=6))

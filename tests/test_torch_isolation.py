@@ -84,8 +84,9 @@ def test_entry_points_default_to_the_gpu():
 def test_configs_equal_reference(smoke):
     """Every architecture the port lists, field for field."""
     assert configs.ARCH_IDS == ["gemma2_27b", "llama4_maverick_400b_a17b",
-                                "moonshot_v1_16b_a3b", "qwen2_7b",
-                                "recurrentgemma_9b", "rwkv6_3b"]
+                                "moonshot_v1_16b_a3b", "paligemma_3b",
+                                "qwen2_7b", "recurrentgemma_9b", "rwkv6_3b",
+                                "whisper_base"]
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -101,6 +102,8 @@ def test_configs_equal_reference(smoke):
     assert configs.canonical("moonshot-v1-16b-a3b") == "moonshot_v1_16b_a3b"
     assert configs.canonical("llama4-maverick-400b-a17b") == \
         "llama4_maverick_400b_a17b"
+    assert configs.canonical("paligemma-3b") == "paligemma_3b"
+    assert configs.canonical("whisper-base") == "whisper_base"
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
