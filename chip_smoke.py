@@ -37,7 +37,13 @@ exits non-zero:
              against the same engine on the CPU (plain versions, eager),
              smoke configs in f32: the paged plane on qwen2, moonshot and
              llama4 (MoE) and paligemma (text-only decode), the gather
-             plane on gemma2 and qwen2.
+             plane on gemma2 and qwen2; then a 2-shard ``ShardedFrontend``
+             on the codeqwen1.5-7b and qwen2-7b smoke configs under byte
+             pressure: card equal to CPU (tokens, per-shard and replica
+             eviction logs, metrics), K=2 equal to K=1 on the card, and a
+             timed trace with a shard crash under a lossy status channel
+             equal to the clean trace (tokens keyed by prompt and
+             arrival), on the card as on the CPU.
 5. serve   — the paged path: full-width qwen2-7b (28 layers, seeded
              random weights, bf16) served through ``ServeEngine(paged=
              True)`` under a LERC prefix cache with byte pressure, each
@@ -107,6 +113,23 @@ exits non-zero:
              traffic, as moonshot is served: captured and eager (identical
              tokens, eviction log and metrics, 18 K1 launches a step),
              ``steady_decode`` and a profiled run.
+    sharded_serve — full-width, full-depth codeqwen1.5-7b (32 layers, MHA,
+             16.38 GB, made on the card once) behind a 2-shard
+             ``ShardedFrontend`` (the qwen2 paged cell's traffic, the
+             96-block LERC store split 48 a shard; the four families route
+             to shards [1, 1, 0, 1]): (a) captured and (b) eager give equal
+             tokens, per-shard and replica eviction logs and metrics, the
+             replicas verified after each; 32 K1 launches a step on each
+             shard, eager or replayed; the bus's messages by kind; (c) one
+             engine over the whole store (token share printed, not gated);
+             (d) a timed trace, clean under torch.profiler and with shard 1
+             crashed at the clean run's first token on shard 1 under a
+             lossy status channel: one crash, every request finished,
+             retries and drops counted, replicas verified after a resync;
+             the shards' weights are the caller's tensors before and after
+             the rebuild; memory allocated before the crash, after the
+             rebuild, at the end and at peak. Then the launcher with
+             ``--shards 2`` and a crash plan on the smoke config.
 10. train  — parity first: the four smoke configs in f32 trained 3
              steps on the card (K3, K5, K4) and on the CPU (plain routes)
              from the same weights and batches. Then the training path at full
@@ -168,9 +191,11 @@ It imports only the port, torch and numpy, and needs no network.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import filecmp
 import gc
+import io
 import json
 import math
 import os
@@ -180,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 from unittest import mock
 
@@ -194,6 +220,8 @@ from repro_torch.data import (Executor, LoaderConfig,  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_design  # noqa: E402
+from repro_torch.faults import BusFault, FaultPlan  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
 # the modules, which the package's functions of the same names shadow
@@ -220,7 +248,9 @@ from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve import (LegacyServeEngine,  # noqa: E402
-                               PrefixStore, ServeEngine, TieredKVStore)
+                               PrefixStore, ServeEngine, ShardedFrontend,
+                               TieredKVStore, TracedRequest, play_trace)
+from repro_torch.sim import poisson_arrivals  # noqa: E402
 from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
                                TrainConfig, adamw_init, build_train_step,
                                latest, load, make_train_state)
@@ -528,13 +558,14 @@ def kernel_phase(dev) -> dict:
     assert set(designs.values()) == {"simt", "mma16", "mma64"}, designs
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
-    # the paged path's heads: qwen2-7b's (G=7, D=128) and paligemma-3b's
-    # (G=8 over one KV head of D=256)
-    for (model, H, KV, D), S in ((m, S) for m in (("qwen2", 28, 4, 128),
-                                                  ("paligemma", 8, 1, 256))
-                                 for S in (1, 64)):
+    # the paged path's heads: qwen2-7b's (G=7, D=128), paligemma-3b's
+    # (G=8 over one KV head of D=256) and codeqwen1.5-7b's (MHA, G=1 at 32
+    # heads of D=128, over the 40-block tables of its 640-slot cell)
+    for (model, H, KV, D, NW), S in ((m, S) for m in (
+            ("qwen2", 28, 4, 128, 64), ("paligemma", 8, 1, 256, 64),
+            ("codeqwen", 32, 32, 128, 40)) for S in (1, 64)):
         tag = f"S{S}" if model == "qwen2" else f"{model}_S{S}"
-        args = paged_inputs(8, S, H, KV, D, 16, 64, torch.bfloat16, dev,
+        args = paged_inputs(8, S, H, KV, D, 16, NW, torch.bfloat16, dev,
                             seed=S, inactive=True)
         got = paged_decode_attention(*args)
         want = paged_attention_plain(*args)
@@ -556,7 +587,7 @@ def kernel_phase(dev) -> dict:
         }
         emit("kernel", name="paged_attention", dtype="bfloat16",
              shape={"B": 8, "S": S, "H": H, "KV": KV, "D": D, "bt": 16,
-                    "NW": 64}, max_abs_err=err, atol=BF16_ATOL,
+                    "NW": NW}, max_abs_err=err, atol=BF16_ATOL,
              **timings[tag])
     emit("kernel_check", name="paged_attention", max_abs_err=errs,
          designs=designs, f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
@@ -1341,6 +1372,97 @@ def parity_phase(dev) -> None:
              effective_hits=cs.metrics()["effective_hits"],
              prefill_tokens_skipped=ce.prefill_tokens_skipped,
              kernel_launches=launches)
+    for arch in ("codeqwen1_5_7b", "qwen2_7b"):
+        sharded_parity(dev, arch)
+
+
+def smoke_frontend(cfg, params, dev, n_shards, blk, faults=None):
+    """A frontend of smoke shards on the paged plane, 2 slots each, a LERC
+    store of 10 blocks split across the shards (byte pressure)."""
+    return ShardedFrontend(
+        cfg, params, n_shards, max_slots=2, max_seq=64,
+        capacity_bytes=10 * blk // n_shards, policy="lerc", block_tokens=8,
+        prefill_chunk=8, paged=True, record_eviction_log=True,
+        faults=faults, device=dev)
+
+
+def by_key(requests) -> dict:
+    """Tokens keyed by (prompt, arrival): rids are per-shard counters, so
+    they collide across shards and across a crash's rebuild."""
+    return {(tuple(r.prompt), r.arrival): list(r.generated)
+            for r in requests}
+
+
+def sharded_parity(dev, arch) -> None:
+    """The sharded tier's exactness claims on the card, smoke ``arch`` in
+    f32: a 2-shard frontend on the card (K1, captured steps) gives the CPU
+    frontend's (plain, eager) tokens, per-shard eviction logs, replica
+    logs and metrics; on the card K=2 gives K=1's tokens; and a timed
+    trace under a crash of shard 0 and a lossy status channel gives the
+    clean trace's tokens, keyed by (prompt, arrival), the same on the card
+    as on the CPU."""
+    cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0),
+                         "cpu", dtype=torch.float32)
+    prompts = shared_prefix_prompts(cfg.vocab, 12, 4, 24, 8, seed=7)
+    blk = ServeEngine(cfg, {}, max_slots=1, max_seq=8,
+                      store=PrefixStore(1 << 40, "lerc", block_tokens=8),
+                      pool_blocks=1, paged=True,
+                      device="cpu")._block_nbytes()
+    times = poisson_arrivals(12, 1.5, seed=3)
+    trace = [TracedRequest(t=t, prompt=p, max_new=4)
+             for t, p in zip(times, prompts)]
+
+    def batch(where, n_shards):
+        fe = smoke_frontend(cfg, params, where, n_shards, blk)
+        rs = [fe.submit(p, max_new=4)[1] for p in prompts]
+        fe.run()
+        fe.verify_replicas()
+        return fe, rs
+
+    def timed(where, faults):
+        fe = smoke_frontend(cfg, params, where, 2, blk, faults)
+        report = play_trace(fe, trace)
+        if faults is not None:
+            assert fe.shard_crashes_fired == 1 and fe.failover_retries >= 1
+            assert all(r.finished_at is not None for r in report.requests)
+            fe.resync_replicas()
+        fe.verify_replicas()
+        return fe, by_key(report.requests)
+
+    def observed(fe, rs):
+        return ([r.generated for r in rs],
+                [e.store.eviction_log for e in fe.shards],
+                [tr.eviction_log for tr in fe.trackers], fe.metrics())
+
+    plan = FaultPlan(seed=7, shard_crashes=((5.0, 0),),
+                     bus_faults=(BusFault(channel="status", drop_p=0.2),))
+    cpu = observed(*batch("cpu", 2))
+    (gfe, grs), launches = counted(lambda: batch(dev, 2))
+    assert launches["paged_decode_attention"] > 0, launches
+    assert all(e.step_program.captures > 0 for e in gfe.shards)
+    card = observed(gfe, grs)
+    assert sum(len(log) for log in cpu[1]) > 0, "no byte pressure"
+    assert card == cpu
+    one = observed(*batch(dev, 1))
+    assert one[0] == card[0]
+    clean = timed(dev, None)[1]
+    crashed_fe, crashed = timed(dev, plan)
+    assert crashed == clean
+    cpu_fe, cpu_crashed = timed("cpu", plan)
+    assert cpu_crashed == crashed
+    assert crashed_fe.metrics() == cpu_fe.metrics()
+    m = crashed_fe.metrics()
+    emit("parity", config=f"{arch} smoke f32, ShardedFrontend (2 shards)",
+         paged=True, requests=len(prompts), card_equals_cpu=True,
+         k2_equals_k1=True, crash_equals_clean=True,
+         evictions=card[3]["evictions"],
+         effective_hits=card[3]["effective_hits"],
+         eviction_reports=card[3]["msg_eviction_reports"],
+         crash_run={key: m[key] for key in (
+             "shard_crashes", "failover_retries", "msg_dropped",
+             "msg_resyncs")},
+         kernel_launches=launches)
 
 
 def serve_phase(dev) -> tuple:
@@ -2920,6 +3042,337 @@ def vlm_serve_phase(dev) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------- sharded serve
+
+CODEQWEN_PARAMS = 8_190_038_016                  # the reference's param_count
+CODEQWEN_BLOCK_BYTES = 16 * 32 * 2 * 32 * 128 * 2  # bt x layers x k,v x KV x D
+SHARDS = 2
+SHARD_KW = dict(max_slots=8, max_seq=640, policy="lerc", block_tokens=16,
+                prefill_chunk=64, paged=True, record_eviction_log=True)
+STORE_BLOCKS = 96                               # split across the shards
+
+
+def codeqwen_frontend(cfg, params, dev, cuda_graphs=None, faults=None):
+    """The cell's frontend: 2 shards of 8 slots, chunk 64, block 16, the
+    96-block LERC store split as the launcher splits ``--cache-kb``."""
+    return ShardedFrontend(
+        cfg, params, SHARDS,
+        capacity_bytes=STORE_BLOCKS * CODEQWEN_BLOCK_BYTES // SHARDS,
+        faults=faults, device=dev, cuda_graphs=cuda_graphs, **SHARD_KW)
+
+
+def count_messages(bus) -> dict:
+    """{message kind: messages sent} on ``bus`` from now on (dropped ones
+    included: the bus drops after it counts)."""
+    kinds, send = {}, bus.send
+
+    def counting(msg):
+        kinds[msg.kind] = kinds.get(msg.kind, 0) + 1
+        send(msg)
+
+    bus.send = counting
+    return kinds
+
+
+def assert_shared_weights(fe, params) -> None:
+    """Every shard's engine and step program serve from the caller's
+    tensors: the same storage, one copy of the weights on the card."""
+    want = [t.data_ptr() for _, t in tree_paths(params)]
+    assert [t.data_ptr() for _, t in tree_paths(fe._params)] == want
+    for eng in fe.shards:
+        for tree in (eng.params, eng.step_program.params):
+            assert [t.data_ptr() for _, t in tree_paths(tree)] == want
+
+
+def program_tally(eng, kernel="paged_decode_attention") -> dict:
+    """A shard's steps and its step program's captures and replays, with
+    ``kernel``'s launches recorded into its graphs and replayed from them."""
+    prog = eng.step_program
+    return {"engine_steps": eng.steps, "captures": prog.captures,
+            "steps_replayed": prog.replays,
+            "graph_nodes": named(kernel, prog.captured_kernels),
+            "replayed_launches": named(kernel, prog.replayed_kernels)}
+
+
+def frontend_launches(cfg, tallies, counts, kernel="paged_decode_attention"):
+    """K1's launches over a frontend run's engines (a crashed shard's
+    included): each graph holds ``n_layers`` of them and each replay
+    launches them all, 32 a step on each shard; the wrapper counts the
+    eager steps' launches and one a capture. Returns (the wrapper's count,
+    the device's: eager plus replayed)."""
+    for t in tallies:
+        assert t["graph_nodes"] == cfg.n_layers * t["captures"], t
+        assert t["replayed_launches"] == cfg.n_layers * t["steps_replayed"], t
+    eager = counts[kernel] - sum(t["graph_nodes"] for t in tallies)
+    steps = sum(t["engine_steps"] for t in tallies)
+    replays = sum(t["steps_replayed"] for t in tallies)
+    assert eager == cfg.n_layers * (steps - replays), (counts, tallies)
+    device = eager + sum(t["replayed_launches"] for t in tallies)
+    assert device == cfg.n_layers * steps, (device, steps)
+    return counts[kernel], device
+
+
+def token_share(a, b) -> float:
+    """The share of positions where two runs' generations agree."""
+    pairs = [(x, y) for ga, gb in zip(a, b) for x, y in zip(ga, gb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def shard_lines(fe, reqs) -> list:
+    """Each shard's requests, steps, captures and store counters."""
+    return [{"requests": sum(fe.shard_of(r.prompt) == k for r in reqs),
+             **program_tally(e),
+             "effective_hits": e.store.metrics()["effective_hits"],
+             "evictions": e.store.evictions,
+             "prefill_tokens_skipped": e.prefill_tokens_skipped}
+            for k, e in enumerate(fe.shards)]
+
+
+def sharded_serve_phase(dev) -> tuple:
+    """The sharded tier at full width: codeqwen1.5-7b (32 layers, MHA,
+    16.38 GB of bf16 weights, made on the card once) served by a 2-shard
+    ``ShardedFrontend`` under the qwen2 paged cell's traffic, the 96-block
+    LERC store split 48 a shard. (a) captured (the card's default) and (b)
+    eager: equal tokens, per-shard eviction logs, replica logs and metrics,
+    replicas verified after each; (c) one engine over the whole store: its
+    token share with (a) printed, not gated (a random full-depth model is
+    chaotic in bf16 across schedules); (d) the prompts on a timed trace,
+    clean (profiled) and with shard 1 crashed at the clean run's first
+    token on shard 1 under a lossy status channel: one crash, every request
+    finished, retries and drops counted, replicas verified after a resync,
+    and the weights shared before and after the rebuild. Then the launcher
+    with ``--shards 2`` and a crash plan on the smoke config. Returns K1's
+    launches in (a): the wrapper's and the device's."""
+    cfg = configs.get("codeqwen1_5_7b")            # full width and depth
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = init_params(model_spec(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for _, t in tree_paths(params))
+    assert n_params == CODEQWEN_PARAMS, n_params
+    probe = ServeEngine(cfg, {}, max_slots=1, max_seq=16,
+                        store=PrefixStore(1 << 40, "lerc", block_tokens=16),
+                        pool_blocks=1, paged=True, device=dev,
+                        cuda_graphs=False)
+    assert probe.pool.block_nbytes == CODEQWEN_BLOCK_BYTES, \
+        probe.pool.block_nbytes
+    del probe
+    prompts = shared_prefix_prompts(cfg.vocab, 16, 4, 512, 64, seed=0)
+    run_engine(cfg, params, dev, prompts[:2], cap_blocks=STORE_BLOCKS,
+               bt=16, slots=8, max_seq=640, chunk=64, max_new=2,
+               paged=True)                                 # warm-up
+    torch.cuda.synchronize()
+    weights_allocated = torch.cuda.memory_allocated(dev)
+
+    def batch(cuda_graphs):
+        fe = codeqwen_frontend(cfg, params, dev, cuda_graphs)
+        assert_shared_weights(fe, params)
+        kinds = count_messages(fe.bus)
+        t0 = time.time()
+        rs = [fe.submit(p, max_new=32)[1] for p in prompts]
+        fe.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        fe.verify_replicas()
+        return fe, rs, kinds, wall
+
+    (fe, reqs, kinds, wall), counts = counted(lambda: batch(None))
+    route = [fe.shard_of(p) for p in prompts[:4]]
+    launches = frontend_launches(cfg, [program_tally(e) for e in fe.shards],
+                                 counts)
+    (efe, ereqs, _, ewall), ecounts = counted(lambda: batch(False))
+    assert all(e.step_program.captures == 0 for e in efe.shards)
+    assert [r.generated for r in ereqs] == [r.generated for r in reqs]
+    assert [e.store.eviction_log for e in efe.shards] == \
+        [e.store.eviction_log for e in fe.shards]
+    assert [t.eviction_log for t in efe.trackers] == \
+        [t.eviction_log for t in fe.trackers]
+    assert efe.metrics() == fe.metrics()
+    m = fe.metrics()
+    tokens = [t for r in reqs for t in r.generated]
+    assert len(tokens) == 16 * 32 and all(0 <= t < cfg.vocab for t in tokens)
+    assert m["evictions"] > 0 and m["effective_hits"] > 0, m
+    assert m["msg_eviction_reports"] > 0 and m["msg_peer_profile_broadcasts"] \
+        == len(prompts)
+    emit("sharded_serve", run="(a) captured and (b) eager",
+         config="codeqwen1_5_7b full width and depth, 32 G layers (32 heads, "
+         "kv 32, d_head 128, d_ff 13440, vocab 92416), bf16, random weights "
+         "(seed 0), ShardedFrontend of 2 paged shards",
+         params=n_params, init_s=init_s, weights_allocated=weights_allocated,
+         block_nbytes=CODEQWEN_BLOCK_BYTES,
+         store_capacity_per_shard=fe.shards[0].store.capacity,
+         family_shards=route, requests=len(prompts),
+         generated_tokens=len(tokens), wall_s=wall,
+         tokens_per_s=len(tokens) / wall, eager_wall_s=ewall,
+         eager_tokens_per_s=len(tokens) / ewall, eager_identical=True,
+         verify_replicas=True, kernel_launches=counts,
+         eager_kernel_launches=ecounts,
+         paged_decode_attention={"wrapper": launches[0],
+                                 "device": launches[1],
+                                 "per_step_per_shard": cfg.n_layers},
+         shards=shard_lines(fe, reqs), messages_by_kind=kinds,
+         bus={key[4:]: val for key, val in m.items()
+              if key.startswith("msg_")},
+         evictions=m["evictions"], effective_hits=m["effective_hits"],
+         prefill_tokens_skipped=m["prefill_tokens_skipped"],
+         engine_steps=m["engine_steps"])
+    fe_tokens = [r.generated for r in reqs]
+    fe.close()
+    efe.close()
+    del fe, efe, reqs, ereqs
+
+    # (c) one engine over the whole store: the schedule differs, so only
+    # the token share is printed
+    t0 = time.time()
+    single, sstore, sreqs = run_engine(
+        cfg, params, dev, prompts, cap_blocks=STORE_BLOCKS, bt=16, slots=8,
+        max_seq=640, chunk=64, max_new=32, paged=True)
+    torch.cuda.synchronize()
+    sm = single.metrics()
+    emit("sharded_serve", run="(c) one ServeEngine, the whole 96-block "
+         "store, captured", wall_s=time.time() - t0,
+         engine_steps=single.steps, evictions=sm["evictions"],
+         effective_hits=sm["effective_hits"],
+         prefill_tokens_skipped=sm["prefill_tokens_skipped"],
+         token_share_with_a=token_share([r.generated for r in sreqs],
+                                        fe_tokens))
+    del single, sstore, sreqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a timed trace, clean (profiled) and with a crash of shard 1
+    trace = [TracedRequest(t=t, prompt=p, max_new=32)
+             for t, p in zip(poisson_arrivals(16, 0.2, seed=0), prompts)]
+    clean_fe = codeqwen_frontend(cfg, params, dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        clean = play_trace(clean_fe, trace)
+        torch.cuda.synchronize()
+        clean_ms = (time.time() - t0) * 1e3
+    clean_fe.verify_replicas()
+    by_name = device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    runs, k1_ms = traced_kernel(prof, "paged_decode_attention")
+    clean_steps = sum(e.steps for e in clean_fe.shards)
+    assert 0 < runs <= cfg.n_layers * clean_steps, (runs, clean_steps)
+    crash_at = min(r.first_token_at for r in clean.requests
+                   if clean_fe.shard_of(r.prompt) == 1)
+    clean_fe.close()
+    del clean_fe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = FaultPlan(seed=7, shard_crashes=((crash_at, 1),),
+                     bus_faults=(BusFault(channel="status", drop_p=0.2),))
+    tallies, memory, crashed = [], {}, []
+
+    def faulted():
+        fe = codeqwen_frontend(cfg, params, dev, faults=plan)
+        assert_shared_weights(fe, params)
+        real = fe._crash_shard
+
+        def crash(k):
+            torch.cuda.synchronize()
+            tallies.append(program_tally(fe.shards[k]))
+            crashed.append(weakref.ref(fe.shards[k]))
+            memory["before_crash"] = torch.cuda.memory_allocated(dev)
+            real(k)
+            assert_shared_weights(fe, params)
+            torch.cuda.synchronize()
+            memory["after_rebuild"] = torch.cuda.memory_allocated(dev)
+
+        fe._crash_shard = crash
+        t0 = time.time()
+        report = play_trace(fe, trace)
+        torch.cuda.synchronize()
+        return fe, report, time.time() - t0
+
+    (ffe, report, fwall), fcounts = counted(faulted)
+    fm = ffe.metrics()
+    assert fm["shard_crashes"] == 1 and len(tallies) == 1, fm
+    assert all(r.finished_at is not None for r in report.requests)
+    assert len(report.requests) == len(trace)
+    assert fm["failover_retries"] >= 1 and fm["msg_dropped"] > 0, fm
+    ffe.resync_replicas()
+    ffe.verify_replicas()
+    flaunches = frontend_launches(
+        cfg, tallies + [program_tally(e) for e in ffe.shards], fcounts)
+    memory["end"] = torch.cuda.memory_allocated(dev)
+    memory["peak"] = torch.cuda.max_memory_allocated(dev)
+    # the crashed engine, its pool and its graphs are gone by the end (the
+    # trace loop's own reference to the shard lasts until its next arrival)
+    assert crashed[0]() is None, "the crashed shard was never freed"
+    keyed = by_key(report.requests)
+    clean_keyed = by_key(clean.requests)
+    emit("sharded_serve", run="(d) timed trace (Poisson, rate 0.2 a unit of "
+         "virtual time, seed 0), clean and with shard 1 crashed",
+         crash_at=crash_at, clean_wall_ms=clean_ms,
+         clean_engine_steps=clean_steps,
+         clean_profile={"device_busy_ms": busy,
+                        "device_idle_share": (1 - busy / clean_ms if busy
+                                              else "not measured: the "
+                                              "profiler recorded no device "
+                                              "activity"),
+                        "paged_decode_attention_runs_in_trace": runs,
+                        "paged_decode_attention_ms": k1_ms,
+                        "gemm_ms": sum(t for n, t in by_name.items() if any(
+                            g in n.lower() for g in GEMM_NAMES))},
+         wall_s=fwall, engine_steps=fm["engine_steps"],
+         crashed_shard=tallies[0],
+         shards=shard_lines(ffe, report.requests),
+         shard_crashes=fm["shard_crashes"],
+         failover_retries=fm["failover_retries"],
+         msg_dropped=fm["msg_dropped"],
+         msg_resyncs=ffe.bus.stats.resyncs, verify_replicas=True,
+         all_finished=True, weights_shared_after_rebuild=True,
+         crashed_shard_freed=True,
+         memory_allocated=memory,
+         paged_decode_attention={"wrapper": flaunches[0],
+                                 "device": flaunches[1]},
+         token_share_with_clean=token_share(
+             [keyed[k] for k in sorted(keyed)],
+             [clean_keyed[k] for k in sorted(keyed)]))
+    ffe.close()
+    del ffe, report, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("sharded_serve", run="launcher", **launcher_shards())
+    return launches
+
+
+def launcher_shards() -> dict:
+    """``repro_torch.launch.serve --arch codeqwen1_5_7b --smoke --shards 2``
+    on the card, in this process, with a plan that crashes shard 1 under a
+    lossy status channel: it exits 0, says ``shards=2`` and fires the
+    crash once."""
+    with tempfile.TemporaryDirectory() as root:
+        plan = os.path.join(root, "plan.json")
+        with open(plan, "w") as f:
+            json.dump({"seed": 7, "shard_crashes": [[2.0, 1]],
+                       "bus_faults": [{"channel": "status",
+                                       "drop_p": 0.2}]}, f)
+        argv = ["--arch", "codeqwen1_5_7b", "--smoke", "--shards", "2",
+                "--fault-plan", plan]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, counts = counted(lambda: launch_serve.serve_main(argv))
+    lines = out.getvalue().splitlines()
+    head = [ln for ln in lines if ln.startswith("policy=")]
+    vals = {ln.split()[0]: ln.split()[1] for ln in lines
+            if ln.startswith("  ")}
+    assert rc == 0 and len(head) == 1 and "shards=2" in head[0], lines[:3]
+    assert int(vals["shard_crashes"]) == 1, vals
+    assert counts["paged_decode_attention"] > 0, counts
+    return {"argv": argv[:-1] + ["PLAN"], "exit": rc, "header": head[0],
+            **{key: vals[key] for key in (
+                "shard_crashes", "failover_retries", "msg_dropped",
+                "msg_resyncs", "engine_steps")},
+            "kernel_launches": counts}
+
+
 def frontend_batches(cfg, dev, n, B, S, seed=0):
     """``n`` training batches of B x S tokens and targets and, for the
     stub frontends, B patch embeddings (vlm) or frames (encdec) from a
@@ -3296,6 +3749,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_vlm = vlm_serve_phase(dev)
     gc.collect()
+    torch.cuda.empty_cache()       # paligemma's weights go before codeqwen's
+    k1_sharded = sharded_serve_phase(dev)
+    gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_phase(dev)
     gc.collect()
@@ -3321,12 +3777,15 @@ def main() -> int:
                     kernel_host_ms=k1["kernel_host_ms"], S64=k1["S64"],
                     paligemma_S1=k1["paligemma_S1"],
                     paligemma_S64=k1["paligemma_S64"],
+                    codeqwen_S1=k1["codeqwen_S1"],
+                    codeqwen_S64=k1["codeqwen_S64"],
                     launches_by_path={
                         "qwen2_7b_paged_serve": [k1_launches, k1_runs],
                         "moonshot_v1_16b_a3b_paged_serve": k1_moe["moonshot"],
                         "llama4_maverick_GM_paged_serve":
                             k1_moe["llama4_GM"],
-                        "paligemma_3b_paged_serve": k1_vlm})
+                        "paligemma_3b_paged_serve": k1_vlm,
+                        "codeqwen1_5_7b_sharded_serve": k1_sharded})
     k2_entry = kernel_entry("decode_attention",
                             "src/repro/kernels/decode_attention.py:29",
                             k2_launches, k2)

@@ -12,10 +12,12 @@ import importlib
 from ..models.common import ModelConfig
 
 ARCH_IDS = [
+    "codeqwen1_5_7b",
     "gemma2_27b",
     "llama4_maverick_400b_a17b",
     "moonshot_v1_16b_a3b",
     "paligemma_3b",
+    "qwen1_5_110b",
     "qwen2_7b",
     "recurrentgemma_9b",
     "rwkv6_3b",

@@ -1,8 +1,8 @@
 """Serving entry point: continuous batching + LERC prefix cache; mirrors
-``src/repro/launch/serve.py`` for the planes the port has (one engine,
-tp=1): the paged and gather planes, the compressed tier ladder
-(``--host-cache-kb``, ``--kv-quant``, ``--disk-cache-mb``), the timed front
-door (``--arrival``) and the single engine's fault plan.
+``src/repro/launch/serve.py`` for the planes the port has (tp=1): the
+paged and gather planes, the compressed tier ladder (``--host-cache-kb``,
+``--kv-quant``, ``--disk-cache-mb``), the timed front door (``--arrival``),
+the sharded tier (``--shards``) and the fault plan.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 16 --slots 8 --max-seq 640 --shared-prefix 512 \\
@@ -14,11 +14,13 @@ window layers (gemma2's "LG") run the gather plane with ``--prefill-chunk``
 clamped to 1. With ``--arrival`` requests arrive on a timed trace (Poisson
 / bursty / diurnal, seeded) with ``--deadline-ms`` TTFT deadlines and
 ``--max-queue`` admission control, and the report adds TTFT/TPOT
-percentiles and goodput on the virtual clock. Runs on the GPU unless
-``--device cpu`` asks for the CPU (where the attention kernels run their
-plain versions); without a GPU the default raises. Weights are seeded
-random (``--seed``), made by the port's own init. ``--shards`` and ``--tp``
-are not ported.
+percentiles and goodput on the virtual clock. ``--shards K`` serves
+through a ``ShardedFrontend`` of K engines on one coordination bus, the
+store's byte budgets split across them, and proves the replicas coherent
+after the run. Runs on the GPU unless ``--device cpu`` asks for the CPU
+(where the attention kernels run their plain versions); without a GPU the
+default raises. Weights are seeded random (``--seed``), made by the port's
+own init. ``--tp`` is not ported.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from ..faults import FaultPlan
 from ..models import init_params, model_spec
 from ..obs import TraceRecorder, jsonable
 from ..serve import (BudgetedScheduler, PrefixStore, ServeEngine,
-                     TieredKVStore, TracedRequest, latency_stats, play_trace)
+                     ShardedFrontend, TieredKVStore, TracedRequest,
+                     latency_stats, play_trace)
 from ..serve.engine import resolve_device
 from ..sim import bursty_arrivals, diurnal_arrivals, poisson_arrivals
 
@@ -75,10 +78,11 @@ def serve_main(argv=None) -> int:
                     help="device KV pool size in blocks "
                          "(default: sized to --cache-kb)")
     ap.add_argument("--host-cache-kb", type=int, default=0,
-                    help="host-memory KV tier: device-pressure evictions "
-                         "demote blocks here (page-locked memory on the "
-                         "GPU) and prefix hits promote them back instead "
-                         "of recomputing (0 disables the tier)")
+                    help="host-memory KV tier per engine: device-pressure "
+                         "evictions demote blocks here (page-locked memory "
+                         "on the GPU) and prefix hits promote them back "
+                         "instead of recomputing (0 disables the tier; "
+                         "split across --shards)")
     ap.add_argument("--kv-quant", default="none",
                     choices=["none", "int8", "fp8"],
                     help="transcode demoted KV blocks to this format "
@@ -87,14 +91,18 @@ def serve_main(argv=None) -> int:
                          "promotion dequantizes on device. 'none' keeps "
                          "every path bit-identical to the lossless tier")
     ap.add_argument("--disk-cache-mb", type=int, default=0,
-                    help="disk KV tier (np.memmap row files): host-tier "
-                         "evictions demote here instead of dying, and "
-                         "lookups promote disk-resident chains back to the "
-                         "device pool (0 disables; needs --host-cache-kb "
-                         "> 0)")
+                    help="disk KV tier per engine (np.memmap row files): "
+                         "host-tier evictions demote here instead of "
+                         "dying, and lookups promote disk-resident chains "
+                         "back to the device pool (0 disables; needs "
+                         "--host-cache-kb > 0; split across --shards)")
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk tier's memmap files "
                          "(default: a TemporaryDirectory per engine)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="cache shards: >1 runs a ShardedFrontend of "
+                         "independent engines on the coordination plane, "
+                         "splitting --cache-kb across shards")
     ap.add_argument("--scheduler", default="fcfs",
                     choices=["fcfs", "decode-first", "budgeted"],
                     help="step scheduler: fcfs (full-chunk prefill for "
@@ -115,18 +123,17 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--arrival-rate", type=float, default=2.0,
                     help="mean arrivals per virtual time unit")
     ap.add_argument("--max-queue", type=int, default=None,
-                    help="admission-control queue bound; arrivals past it "
-                         "are shed with QueueFull")
+                    help="admission-control queue bound (per shard); "
+                         "arrivals past it are shed with QueueFull")
     ap.add_argument("--retry-rejected", type=int, default=0,
                     help="re-submit QueueFull-shed arrivals up to N times, "
                          "waiting the engine's advertised retry-after "
                          "between attempts (retries count against goodput)")
     ap.add_argument("--fault-plan", default=None, metavar="PATH",
-                    help="JSON repro_torch.faults.FaultPlan: disk I/O "
-                         "errors and slow promotions of the tier ladder — "
-                         "the run then exercises quarantine and degraded "
-                         "promotion deterministically (shard crashes need "
-                         "shards, which are not ported)")
+                    help="JSON repro_torch.faults.FaultPlan: seeded shard "
+                         "crashes, bus drop/delay/dup, disk I/O errors, "
+                         "slow promotions — the run then exercises "
+                         "failover, quarantine and resync deterministically")
     ap.add_argument("--fault-seed", type=int, default=None,
                     help="override the fault plan's seed (same plan, "
                          "different draw sequence)")
@@ -170,17 +177,18 @@ def serve_main(argv=None) -> int:
             ap.error(f"--fault-plan {args.fault_plan}: {e}")
         if args.fault_seed is not None:
             plan = dataclasses.replace(plan, seed=args.fault_seed)
-        if plan.shard_crashes:
-            crashed = sorted({k for _, k in plan.shard_crashes})
-            ap.error(f"fault plan crashes shards {crashed}, but this "
-                     "launcher runs one engine and no shard to crash "
-                     "(--shards is not ported)")
+        for _, k in plan.shard_crashes:
+            if not 0 <= k < args.shards:
+                ap.error(f"fault plan crashes shard {k} but --shards is "
+                         f"{args.shards} (valid: 0..{args.shards - 1})")
         injector = plan.injector()
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(model_spec(cfg), gen, device, dtype=cfg.dtype)
+    host_bytes = args.host_cache_kb * 1024
+    disk_bytes = args.disk_cache_mb * 1024 * 1024
     absolute_kv = set(cfg.layer_pattern) <= {"G", "M"}
     if args.paged is None:
         # zero-copy paged attention is the default wherever the KV layout
@@ -192,41 +200,59 @@ def serve_main(argv=None) -> int:
               "recurrent layers; clamping --prefill-chunk to 1",
               file=sys.stderr)
         args.prefill_chunk = 1
+    # schedulers are stateless policy objects — one instance is safely
+    # shared by every shard
     scheduler = (BudgetedScheduler(args.prefill_budget)
                  if args.scheduler == "budgeted" else args.scheduler)
-    host_bytes = args.host_cache_kb * 1024
-    if host_bytes > 0:
-        store: PrefixStore = TieredKVStore(
-            capacity_bytes=args.cache_kb * 1024, policy=args.policy,
-            block_tokens=args.block_tokens,
-            host_capacity_bytes=host_bytes, kv_quant=args.kv_quant,
-            disk_capacity_bytes=args.disk_cache_mb * 1024 * 1024,
-            disk_dir=args.disk_dir)
-        # disk-error / slow-promotion injection: attach before the engine
-        # wires the pools so the disk pool inherits the injector
-        store.faults = injector
+    if args.shards > 1:
+        eng = ShardedFrontend(
+            cfg, params, args.shards, max_slots=args.slots,
+            max_seq=args.max_seq,
+            capacity_bytes=max(args.cache_kb * 1024 // args.shards, 1),
+            policy=args.policy, block_tokens=args.block_tokens,
+            prefill_chunk=args.prefill_chunk, pool_blocks=args.pool_blocks,
+            host_capacity_bytes=host_bytes // args.shards,
+            kv_quant=args.kv_quant,
+            disk_capacity_bytes=disk_bytes // args.shards,
+            disk_dir=args.disk_dir,
+            paged=args.paged, scheduler=scheduler,
+            max_queue=args.max_queue, faults=injector, device=device)
     else:
-        store = PrefixStore(capacity_bytes=args.cache_kb * 1024,
-                            policy=args.policy,
-                            block_tokens=args.block_tokens)
-    eng = ServeEngine(cfg, params, max_slots=args.slots,
-                      max_seq=args.max_seq, store=store,
-                      prefill_chunk=args.prefill_chunk,
-                      pool_blocks=args.pool_blocks, paged=args.paged,
-                      scheduler=scheduler, max_queue=args.max_queue,
-                      device=device)
+        if host_bytes > 0:
+            store: PrefixStore = TieredKVStore(
+                capacity_bytes=args.cache_kb * 1024, policy=args.policy,
+                block_tokens=args.block_tokens,
+                host_capacity_bytes=host_bytes, kv_quant=args.kv_quant,
+                disk_capacity_bytes=disk_bytes, disk_dir=args.disk_dir)
+            # disk-error / slow-promotion injection: attach before the
+            # engine wires the pools so the disk pool inherits the injector
+            store.faults = injector
+        else:
+            store = PrefixStore(capacity_bytes=args.cache_kb * 1024,
+                                policy=args.policy,
+                                block_tokens=args.block_tokens)
+        eng = ServeEngine(cfg, params, max_slots=args.slots,
+                          max_seq=args.max_seq, store=store,
+                          prefill_chunk=args.prefill_chunk,
+                          pool_blocks=args.pool_blocks, paged=args.paged,
+                          scheduler=scheduler, max_queue=args.max_queue,
+                          device=device)
 
     recorder = None
     if args.trace is not None:
         recorder = TraceRecorder(limit=args.trace_limit)
         eng.attach_trace(recorder)
 
-    if host_bytes > 0 and eng.store.host_pool.num_blocks == 0:
-        # a host budget below one KV block sizes the pool to zero rows,
-        # silently disabling the tier — say so up front
-        print(f"warning: --host-cache-kb {args.host_cache_kb} is below one "
-              f"KV block per engine ({eng.pool.block_nbytes} B); host tier "
-              "disabled", file=sys.stderr)
+    if host_bytes > 0:
+        # a host budget below one KV block (per shard) sizes the pool to
+        # zero rows, silently disabling the tier — say so up front
+        engines = eng.shards if args.shards > 1 else [eng]
+        if any(getattr(e.store, "host_pool", None) is None
+               or e.store.host_pool.num_blocks == 0 for e in engines):
+            print(f"warning: --host-cache-kb {args.host_cache_kb} is below "
+                  f"one KV block per {'shard' if args.shards > 1 else 'engine'}"
+                  f" ({engines[0].pool.block_nbytes} B); host tier disabled",
+                  file=sys.stderr)
 
     rng = np.random.default_rng(args.seed)
     n_families = max(args.requests // 4, 1)
@@ -250,14 +276,22 @@ def serve_main(argv=None) -> int:
         eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if args.shards > 1:
+        if injector is not None:
+            # lossy status traffic leaves replicas behind by design; the
+            # anti-entropy resync is the documented repair before verify
+            eng.resync_replicas()
+        eng.verify_replicas()       # smoke doubles as a coherence proof
     m = eng.metrics()
     if report is not None:
         m.update(latency_stats(report))
     if injector is not None:
         for name in sorted(injector.counters):
             m[name] = injector.counters[name]
-    print(f"policy={args.policy}  shards=1  tp=1  "
-          f"paged={'on' if eng.paged else 'off'}  "
+    paged_on = (all(e.paged for e in eng.shards) if args.shards > 1
+                else eng.paged)
+    print(f"policy={args.policy}  shards={args.shards}  tp=1  "
+          f"paged={'on' if paged_on else 'off'}  "
           f"scheduler={args.scheduler}"
           + (f"  arrival={args.arrival}@{args.arrival_rate}"
              if args.arrival else "")

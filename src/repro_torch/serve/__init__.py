@@ -11,7 +11,9 @@ int8/fp8 by ``repro_torch.quant``), host-pressure victims to a file-backed
 disk tier, and demoted chains promote back on reuse instead of being
 recomputed. ``LegacyServeEngine`` (mirroring ``repro.serve.legacy``) is
 the frozen token-at-a-time baseline with host KV round-trips that the
-engine is held to."""
+engine is held to. ``ShardedFrontend`` and ``route_prefix`` (mirroring
+``repro.serve.sharded``) put K engines behind one prefix-affinity router,
+each a worker of one coordination bus."""
 from .disk_pool import DiskBlockPool
 from .engine import Request, ServeEngine, resolve_device
 from .host_pool import HostBlockPool
@@ -23,11 +25,13 @@ from .scheduler import (BudgetedScheduler, DecodeFirstScheduler,
                         FCFSScheduler, QueueFull, Scheduler, StepCostModel,
                         TracedRequest, TraceReport, latency_stats,
                         make_scheduler, play_trace)
+from .sharded import ShardedFrontend, route_prefix
 from .tiered import TieredKVStore
 
 __all__ = ["Request", "ServeEngine", "LegacyServeEngine", "resolve_device",
            "KVBlockPool", "chain_block_nbytes", "HostBlockPool", "DiskBlockPool", "Node",
-           "PrefixStore", "ReferencePrefixStore", "TieredKVStore",
+           "PrefixStore", "ReferencePrefixStore", "ShardedFrontend",
+           "TieredKVStore", "route_prefix",
            "BudgetedScheduler", "DecodeFirstScheduler", "FCFSScheduler",
            "QueueFull", "Scheduler", "StepCostModel", "TracedRequest",
            "TraceReport", "latency_stats", "make_scheduler", "play_trace"]

@@ -111,6 +111,11 @@ class Request:
     deadline: Optional[float] = None    # absolute TTFT deadline, or None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # failover re-admission (repro_torch.faults): how many times a crash
+    # has requeued this request, and the backoff gate before it may
+    # re-admit
+    retries: int = 0
+    not_before: float = 0.0
     # un-synced per-step token vectors (pipelined readback)
     _lazy_out: List = field(default_factory=list, repr=False)
 
@@ -409,12 +414,24 @@ class ServeEngine:
             if self.slots[i] is not None or not self.queue:
                 continue
             queued = len(self.queue)
-            pick = self.scheduler.admit_idx(self.queue)
-            if pick == 0:
-                req = self.queue.popleft()
+            if any(r.not_before > self.now for r in self.queue):
+                # failover re-admissions wait out their backoff; everyone
+                # else competes normally. This branch is unreachable
+                # without a crash (not_before defaults to 0.0).
+                eligible = [r for r in self.queue
+                            if r.not_before <= self.now]
+                if not eligible:
+                    break
+                pick = self.scheduler.admit_idx(eligible)
+                req = eligible[pick]
+                self.queue.remove(req)
             else:
-                req = self.queue[pick]
-                del self.queue[pick]
+                pick = self.scheduler.admit_idx(self.queue)
+                if pick == 0:
+                    req = self.queue.popleft()
+                else:
+                    req = self.queue[pick]
+                    del self.queue[pick]
             self._fresh_slots.add(i)
             usable = self.store.lookup(req.prompt)
             if not self.restore_prefix:
@@ -487,6 +504,11 @@ class ServeEngine:
                 self._admit()
         active = [r for r in self.slots if r is not None]
         if not active:
+            if self.queue and all(r.not_before > self.now
+                                  for r in self.queue):
+                # everything queued is backing off: jump the virtual clock
+                # to the earliest re-admission so the loop can't spin
+                self.now = min(r.not_before for r in self.queue)
             return []
         decoding = [r for r in active if r.pos >= len(r.prompt)]
         prefilling = [r for r in active if r.pos < len(r.prompt)]

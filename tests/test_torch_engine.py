@@ -138,6 +138,14 @@ def test_budgeted_scheduler_matches_reference(model):
     _assert_same(model, "lerc", 8, scheduler="budgeted")
 
 
+@pytest.mark.parametrize("arch", ["codeqwen1_5_7b", "qwen1_5_110b"])
+def test_qwen1_5_paged_engine_matches_reference(arch):
+    """The qwen1.5 configs on the paged plane: codeqwen1.5-7b's MHA (every
+    query head its own KV head) and qwen1.5-110b's GQA, the reference's
+    tokens, eviction log and metrics."""
+    _assert_same(_model(arch), "lerc", 8)
+
+
 @pytest.mark.parametrize("policy", ["lru", "lrc", "lerc"])
 def test_gather_engine_matches_reference_on_rolling_layers(gemma2, policy):
     """gemma2 smoke: L caches 8 slots wide under 32-token prompts, so every
@@ -240,8 +248,13 @@ def test_launcher_gather_plane_prints_reference_metrics(capsys, arch, flags):
     (["--arrival", "poisson", "--arrival-rate", "50", "--deadline-ms", "50",
       "--max-queue", "1", "--retry-rejected", "1", "--requests", "12",
       "--host-cache-kb", "16", "--cache-kb", "1"], "n_retried"),
+    (["--shards", "2", "--requests", "8"], "msg_peer_profile_broadcasts"),
+    (["--shards", "2", "--requests", "8", "--host-cache-kb", "64",
+      "--cache-kb", "2"], "demotions"),
+    (["--shards", "2", "--arrival", "poisson", "--arrival-rate", "2",
+      "--deadline-ms", "50", "--max-queue", "4"], "msg_point_to_point"),
 ], ids=["int8", "int8-pressure", "disk", "disk-pressure", "arrival",
-        "arrival-shed"])
+        "arrival-shed", "shards", "shards-host", "shards-arrival"])
 def test_launcher_tier_and_front_door_flags_print_reference_metrics(
         capsys, flags, moved):
     """The tier flags (``--host-cache-kb``, ``--kv-quant``,
@@ -250,10 +263,18 @@ def test_launcher_tier_and_front_door_flags_print_reference_metrics(
     ``--retry-rejected``) through both launchers: the same metric lines.
     The flags as given, and again under a store of one KB, where chains
     demote, come back from the int8 host tier and from the disk tier, and
-    a queue of one sheds arrivals that a retry takes back."""
+    a queue of one sheds arrivals that a retry takes back. With
+    ``--shards 2`` the frontend's lines, the bus's among them: the port's
+    byte counts less ``PROFILE_EXTRA`` a peer-profile message (pickle
+    names the DAG's classes by the port's longer module path; see
+    ``tests/test_torch_sharded.py``)."""
     (ref, ref_head), (got, head) = _launch_both(
         capsys, ["--arch", "qwen2_7b"] + LAUNCH_ARGS + flags)
     assert [ln.split()[0] for ln in got] == [ln.split()[0] for ln in ref]
+    if "--shards" in flags:
+        got = _less_profile_extra(got, int(flags[flags.index("--shards")
+                                                 + 1]))
+        assert "shards=2" in head[0] and "shards=2" in ref_head[0]
     assert got == ref
     for flag in ("host_cache_kb", "kv_quant", "disk_cache_mb"):
         assert head[0].split(flag)[1].split()[0] == \
@@ -261,6 +282,30 @@ def test_launcher_tier_and_front_door_flags_print_reference_metrics(
     if moved is not None:
         value = {ln.split()[0]: ln.split()[1] for ln in got}[moved]
         assert float(value) > 0, (moved, value)
+
+
+def _less_profile_extra(lines, n_shards):
+    """The port's metric lines with ``msg_payload_bytes`` and
+    ``msg_lerc_bytes`` less ``PROFILE_EXTRA`` for each peer-profile
+    message (one to every shard a broadcast); a run without resyncs
+    sends no other message that carries the DAG's classes."""
+    from repro.core import BlockMeta as JaxBlockMeta
+    from repro.core.coordination import payload_nbytes as jax_nbytes
+    from repro_torch.core import BlockMeta
+    from repro_torch.core.coordination import payload_nbytes
+
+    extra = (payload_nbytes((BlockMeta("b", 1, "d", 0),))
+             - jax_nbytes((JaxBlockMeta("b", 1, "d", 0),)))
+    vals = {ln.split()[0]: ln.split()[1] for ln in lines}
+    assert int(vals["msg_resyncs"]) == 0
+    n = int(vals["msg_peer_profile_broadcasts"]) * n_shards
+    out = []
+    for ln in lines:
+        key = ln.split()[0]
+        if key in ("msg_payload_bytes", "msg_lerc_bytes"):
+            ln = f"  {key:26s} {int(vals[key]) - extra * n}"
+        out.append(ln)
+    return out
 
 
 BAD_FLAG_COMBOS = [
@@ -288,16 +333,31 @@ def test_launch_rejects_bad_flag_combos(extra):
 
 
 def test_launch_refuses_a_shard_crash(tmp_path, capsys):
-    """A fault plan that crashes a shard is refused: the port's launcher
-    runs one engine, with no shard to crash (``--shards`` is not ported);
-    a plan of disk faults alone is taken."""
+    """The reference's check: a plan that crashes a shard outside
+    ``0..--shards-1`` is refused with the reference's message before any
+    device is touched, the same plan is taken at ``--shards 2`` (the crash
+    fires once, the replicas resync and verify), and a plan of disk faults
+    alone is taken."""
     plan = tmp_path / "plan.json"
-    plan.write_text('{"seed": 7, "shard_crashes": [[4.0, 0]]}')
+    plan.write_text('{"seed": 7, "shard_crashes": [[4.0, 1]]}')
     argv = ["--arch", "qwen2_7b", "--smoke", "--fault-plan", str(plan)]
-    with pytest.raises(SystemExit) as exc:
-        serve_main(argv)
-    assert exc.value.code == 2
-    assert "no shard to crash" in capsys.readouterr().err
+    said = []
+    for main in (jax_serve_main, serve_main):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+        said.append(capsys.readouterr().err.splitlines()[-1])
+    assert said[1] == said[0]
+    assert said[1].endswith("fault plan crashes shard 1 but --shards is 1 "
+                            "(valid: 0..0)")
+    assert serve_main(argv + LAUNCH_ARGS[1:] + [
+        "--device", "cpu", "--shards", "2", "--requests", "8"]) == 0
+    lines = {ln.split()[0]: ln.split()[1]
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("  ")}
+    assert int(lines["shard_crashes"]) == 1
+    assert int(lines["fault.shard_crash"]) == 1
+    assert int(lines["msg_resyncs"]) >= 1
     plan.write_text('{"seed": 7, "disk_read_error_p": 1.0, '
                     '"quarantine_after": 1}')
     assert serve_main(argv + LAUNCH_ARGS[1:] + [
@@ -332,6 +392,42 @@ def test_scheduled_fcfs_matches_reference_run_loop(model):
     assert [r.prefill_skipped for r in report.requests] == \
         [r.prefill_skipped for r in jrs]
     assert eng.steps == jeng.steps
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "gather"])
+def test_backoff_readmission_matches_reference(model, paged):
+    """Failover re-admission: requests whose ``not_before`` lies ahead of
+    the clock wait while the others compete, and when everything queued
+    backs off the clock jumps to the earliest ``not_before``. Both engines
+    admit in the same order at the same virtual times, jump to the same
+    times, and give the same tokens, steps, eviction log and metrics."""
+    jcfg, tcfg, jparams, tparams = model
+    not_before = [1.5, 4.0, 1.5, 9.0, 4.0, 1.5, 9.0, 4.0, 200.0, 200.0]
+    out = []
+    for cls, store_cls, cfg, params, kw in (
+            (JaxEngine, JaxStore, jcfg, jparams, {}),
+            (ServeEngine, PrefixStore, tcfg, tparams, {"device": "cpu"})):
+        eng, st = _engine(cls, store_cls, cfg, params, "lerc", 8, None,
+                          paged=paged, **kw)
+        rs = [eng.submit(r, max_new=MAX_NEW) for r in workload(cfg.vocab)]
+        for r, t in zip(rs, not_before):
+            r.not_before = t
+        seen = []
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            seen.append((eng.now, eng.steps,
+                         [s.rid if s is not None else None
+                          for s in eng.slots]))
+        out.append((seen, [r.generated for r in rs], st.eviction_log,
+                    eng.metrics()))
+    assert out[1] == out[0]
+    seen = out[0][0]
+    assert seen[0] == (1.5, 0, [None, None])      # all backing off: a jump
+    assert any(now == 200.0 and slots == [None, None]
+               for now, _, slots in seen)            # the jump past the rest
+    late = {rs[8].rid, rs[9].rid}
+    assert all(now >= 200.0 for now, _, slots in seen if late & set(slots))
+    assert st.evictions > 0
 
 
 def test_cancel_and_drain_match_reference(model):

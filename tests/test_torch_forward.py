@@ -1,6 +1,6 @@
 """The port's training forward (``lm_forward``) and loss against the
-reference's on the qwen2-7b, gemma2-27b, recurrentgemma-9b and rwkv6-3b
-smoke configs in f32, with the reference's weights carried over by the bridge
+reference's on the qwen2-7b, codeqwen1.5-7b (MHA), qwen1.5-110b, gemma2-27b,
+recurrentgemma-9b and rwkv6-3b smoke configs in f32, with the reference's weights carried over by the bridge
 and the same seeded tokens.
 
 Logits within 2e-4 with the same argmax everywhere, the loss within 1e-5
@@ -27,7 +27,8 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_decode_cache, lm_forward, loss_fn,
                                 params_from_numpy)
 
-ARCHS = ["qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"]
+ARCHS = ["qwen2_7b", "codeqwen1_5_7b", "qwen1_5_110b", "gemma2_27b",
+         "recurrentgemma_9b", "rwkv6_3b"]
 _MODELS = {}
 
 

@@ -66,13 +66,16 @@ def test_entry_points_default_to_the_gpu():
     raise instead of carrying on on the CPU."""
     from repro_torch.launch.serve import serve_main
     from repro_torch.launch.train import train_main
-    from repro_torch.serve import ServeEngine, resolve_device
+    from repro_torch.serve import (ServeEngine, ShardedFrontend,
+                                   resolve_device)
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
     cfg = configs.get("qwen2_7b", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeEngine(cfg, {}, max_slots=1, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ShardedFrontend(cfg, {}, 2, max_slots=1, max_seq=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_main(["--arch", "qwen2_7b", "--smoke"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -83,10 +86,13 @@ def test_entry_points_default_to_the_gpu():
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(smoke):
     """Every architecture the port lists, field for field."""
-    assert configs.ARCH_IDS == ["gemma2_27b", "llama4_maverick_400b_a17b",
+    assert configs.ARCH_IDS == ["codeqwen1_5_7b", "gemma2_27b",
+                                "llama4_maverick_400b_a17b",
                                 "moonshot_v1_16b_a3b", "paligemma_3b",
-                                "qwen2_7b", "recurrentgemma_9b", "rwkv6_3b",
+                                "qwen1_5_110b", "qwen2_7b",
+                                "recurrentgemma_9b", "rwkv6_3b",
                                 "whisper_base"]
+    assert sorted(configs.ARCH_IDS) == sorted(jax_configs.ARCH_IDS)
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -104,6 +110,8 @@ def test_configs_equal_reference(smoke):
         "llama4_maverick_400b_a17b"
     assert configs.canonical("paligemma-3b") == "paligemma_3b"
     assert configs.canonical("whisper-base") == "whisper_base"
+    assert configs.canonical("codeqwen1.5-7b") == "codeqwen1_5_7b"
+    assert configs.canonical("qwen1.5-110b") == "qwen1_5_110b"
     for arch in configs.ARCH_IDS:
         ref = jax_configs.get(arch, smoke=smoke)
         port = configs.get(arch, smoke=smoke)
@@ -155,3 +163,9 @@ def test_param_spec_tree_equals_reference(smoke):
             (24, 128, 8192, 5120)
         assert l4[("stack", "1_M", "moe", "shared_wo")].shape == \
             (24, 8192, 5120)
+        assert shape["codeqwen1_5_7b"][("stack", "0_G", "mlp", "wi")].shape \
+            == (32, 4096, 2, 13440)
+        assert shape["codeqwen1_5_7b"][("stack", "0_G", "attn", "wk")] \
+            .shape == (32, 4096, 32, 128)
+        assert shape["qwen1_5_110b"][("stack", "0_G", "mlp", "wi")].shape \
+            == (80, 8192, 2, 49152)
