@@ -32,7 +32,8 @@ exits non-zero:
              bf16 r, k, v at rwkv6-3b's training shape B=2, T=4096,
              H=16, N=160; the gradients through its Function against
              autograd of its plain version; the backward's state carry
-             against a plain loop over the chunks).
+             against a plain loop over the chunks). K1 is also timed at
+             one rank's heads of qwen2-7b served at tp=2 (H=14, KV=2).
 4. parity  — the serve engine on the card (kernels, captured steps)
              against the same engine on the CPU (plain versions, eager),
              smoke configs in f32: the paged plane on qwen2, moonshot and
@@ -65,7 +66,13 @@ exits non-zero:
              beside eager; and a short
              captured run under
              torch.profiler: device busy and idle share, K1's and the
-             GEMMs' device time. Then ``tiered_serve``: two waves of 16
+             GEMMs' device time. ``serve_tp``: the same cell on the
+             tensor-parallel path at tp=1 (a one-rank NCCL group, captured
+             steps, K1 on the rank's head slice, the outputs all-gathered
+             over heads before ``wo``): tokens, eviction log and metrics
+             equal to the plain engine's, 28 K1 launches a step, both
+             runs' tokens/s and what the TP graph holds beyond the plain
+             one. Then ``tiered_serve``: two waves of 16
              requests (the same 4 prefixes, fresh suffixes) under five
              stores, (e) unbounded, (a) 96 blocks, (b) 96 over a lossless
              pinned host tier of 256 blocks, (c) the same host bytes in
@@ -73,7 +80,9 @@ exits non-zero:
              (d) must demote and promote, take (e)'s steps and give its
              tokens, and prefill fewer wave-2 tokens than (a); each wave's
              wall, the store's tier counters, K1's launches and every pool
-             transfer's blocks, ms and GB/s are printed.
+             transfer's blocks, ms and GB/s are printed; then (c) again
+             on the TP path at tp=1 (its int8 scales' amax all-reduced):
+             equal to (c).
 6. serve   — the gather path: full-width, full-depth gemma2-27b (46 layers
              alternating rolling-window and global attention, softcaps,
              bf16, seeded random weights) through ``ServeEngine(paged=
@@ -132,7 +141,8 @@ exits non-zero:
              ``--shards 2`` and a crash plan on the smoke config.
 10. train  — parity first: the four smoke configs in f32 trained 3
              steps on the card (K3, K5, K4) and on the CPU (plain routes)
-             from the same weights and batches. Then the training path at full
+             from the same weights and batches, qwen2 also with cross-pod
+             gradient compression. Then the training path at full
              width: recurrentgemma-9b cut to 5 layers (one RRL unit and
              the RR tail), bf16, seeded random weights, 4 AdamW steps at
              batch 2 x 4096 tokens through ``build_train_step``, every
@@ -158,6 +168,10 @@ exits non-zero:
              launcher on the rwkv6 smoke config with ``--ckpt-dir``: run
              through, and preempted by SIGTERM at step 3 and resumed with
              ``--resume``; the two step-6 checkpoints equal byte for byte.
+    train_compressed — the same 4-layer rwkv6-3b, 4 AdamW steps at batch
+             2 x 4096 from one fresh state without and with
+             ``compress_pod_grads``: step ms, losses, the error-feedback
+             residuals' norm.
     vlm_train — paligemma-3b at full width and depth, bf16, seeded random
              weights, 4 AdamW steps at batch 4, each example 256 patch
              embeddings (dim 1152) and 256 tokens: every attention a K3
@@ -176,7 +190,8 @@ exits non-zero:
              plain version's, a profiled window; then the smoke config in
              f32, the card against the CPU (identical tokens).
 13. the kernels line (K1's, K2's and K3's launches on each of their
-             paths under ``launches_by_path``), the card line, and the
+             paths under ``launches_by_path``, K1's on the TP path
+             among them), the card line, and the
              result line.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -192,6 +207,7 @@ It imports only the port, torch and numpy, and needs no network.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import filecmp
 import gc
@@ -250,10 +266,12 @@ from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve import (LegacyServeEngine,  # noqa: E402
                                PrefixStore, ServeEngine, ShardedFrontend,
                                TieredKVStore, TracedRequest, play_trace)
+from repro_torch.sharding import serve_tp_context  # noqa: E402
 from repro_torch.sim import poisson_arrivals  # noqa: E402
 from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
                                TrainConfig, adamw_init, build_train_step,
-                               latest, load, make_train_state)
+                               compression_ratio, ef_init, latest, load,
+                               make_train_state)
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -559,11 +577,13 @@ def kernel_phase(dev) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     # the paged path's heads: qwen2-7b's (G=7, D=128), paligemma-3b's
-    # (G=8 over one KV head of D=256) and codeqwen1.5-7b's (MHA, G=1 at 32
-    # heads of D=128, over the 40-block tables of its 640-slot cell)
+    # (G=8 over one KV head of D=256), codeqwen1.5-7b's (MHA, G=1 at 32
+    # heads of D=128, over the 40-block tables of its 640-slot cell) and
+    # one rank's of qwen2-7b served at tp=2 (14 heads over 2 KV heads)
     for (model, H, KV, D, NW), S in ((m, S) for m in (
             ("qwen2", 28, 4, 128, 64), ("paligemma", 8, 1, 256, 64),
-            ("codeqwen", 32, 32, 128, 40)) for S in (1, 64)):
+            ("codeqwen", 32, 32, 128, 40), ("qwen2_tp2", 14, 2, 128, 64))
+            for S in (1, 64)):
         tag = f"S{S}" if model == "qwen2" else f"{model}_S{S}"
         args = paged_inputs(8, S, H, KV, D, 16, NW, torch.bfloat16, dev,
                             seed=S, inactive=True)
@@ -1164,7 +1184,7 @@ def shared_prefix_prompts(vocab, n, families, prefix, unique, seed):
 
 
 def run_engine(cfg, params, dev, prompts, *, cap_blocks, bt, slots, max_seq,
-               chunk, max_new, paged, cuda_graphs=None):
+               chunk, max_new, paged, cuda_graphs=None, kv_shard=None):
     probe = ServeEngine(cfg, params, max_slots=1, max_seq=bt,
                         store=PrefixStore(1 << 40, "lerc", block_tokens=bt),
                         pool_blocks=1, prefill_chunk=chunk, paged=paged,
@@ -1174,7 +1194,7 @@ def run_engine(cfg, params, dev, prompts, *, cap_blocks, bt, slots, max_seq,
     del probe
     eng = ServeEngine(cfg, params, max_slots=slots, max_seq=max_seq,
                       store=store, prefill_chunk=chunk, paged=paged,
-                      device=dev, cuda_graphs=cuda_graphs)
+                      device=dev, cuda_graphs=cuda_graphs, kv_shard=kv_shard)
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
     eng.run()
     return eng, store, reqs
@@ -1466,8 +1486,8 @@ def sharded_parity(dev, arch) -> None:
 
 
 def serve_phase(dev) -> tuple:
-    """The paged path at full width. Returns K1's launches in its run:
-    the wrapper's count and the trace's."""
+    """The paged path at full width. Returns K1's launches in its run (the
+    wrapper's count and the device's) and in the TP run's."""
     cfg = configs.get("qwen2_7b")                  # full width, bf16
     t0 = time.time()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1520,6 +1540,10 @@ def serve_phase(dev) -> tuple:
          max_memory_allocated=peak, captured=run, eager=eager_run,
          eager_identical=True)
 
+    # serve tensor parallelism at tp=1: a one-rank NCCL group
+    tp_ctx = serve_tp_context(1, dev)
+    k1_tp = serve_tp_step(cfg, params, dev, prompts, kw, (eng, store, reqs),
+                          run, tp_ctx)
     paged_decode_step(cfg, eng, dev)
     del eng, store, reqs
     steady_decode(cfg, params, dev, paged=True, chunk=64, prompt=64,
@@ -1528,8 +1552,88 @@ def serve_phase(dev) -> tuple:
         cfg.vocab, 8, 4, 512, 64, seed=2), {**kw, "max_new": 8},
         "8 requests x (512 shared + 64 unique) prompt tokens, 8 new "
         "tokens, 8 slots, chunk 64", "paged_attention", match="paged_")
-    tiered_serve(cfg, params, dev, prompts, kw)
-    return launches, run["device_launches"]
+    tiered_serve(cfg, params, dev, prompts, kw, tp_ctx)
+    torch.distributed.destroy_process_group()
+    return launches, run["device_launches"], k1_tp
+
+
+# CUgraphNodeType (cuda.h)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_node_types(raw_graph: int) -> dict:
+    """{node type: nodes} of a CUDA graph's top level, read with libcuda's
+    graph calls."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t()
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    out: dict = {}
+    for node in map(ctypes.c_void_p, nodes):
+        kind = ctypes.c_int()
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        name = NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def per_capture(prog) -> dict:
+    """A step program's captured kernels by name, a capture's worth."""
+    return {k: v / prog.captures for k, v in prog.captured_kernels.items()}
+
+
+def serve_tp_step(cfg, params, dev, prompts, kw, base, base_run, ctx):
+    """The qwen2-7b paged cell served on the TP path at tp=1 (``ctx``, a
+    one-rank NCCL group; captured steps): its tokens, eviction log and
+    ``metrics()`` must equal the phase's engine without TP bit for bit
+    (the head slice is all 28 heads, the all-gather a copy), K1 28
+    launches a step. Prints both runs' tokens/s and replays, and what a
+    TP graph holds beyond the plain one: kernels by name and node types.
+    Returns K1's launches, the wrapper's and the device's."""
+    tp, tp_run = timed_serve(cfg, params, dev, prompts,
+                             "paged_decode_attention", None, cap_blocks=96,
+                             kv_shard=ctx, **kw)
+    assert_same_run(base, tp)
+    eng = tp[0]
+    m = eng.metrics()
+    assert eng.tp == 1 and m["serve_tp"] == 1, m["serve_tp"]
+    assert m["device_kv_bytes"] == m["kv_bytes_global"]
+    bprog, tprog = base[0].step_program, eng.step_program
+    assert tp_run["device_launches"] == cfg.n_layers * eng.steps
+    bk, tk = per_capture(bprog), per_capture(tprog)
+    key = next(k for k in tprog._graphs if k in bprog._graphs)
+    emit("serve_tp", config="qwen2_7b full width, 28 layers, bf16, random "
+         "weights (seed 0), paged plane, tp=1 on a one-rank NCCL group "
+         "(serve_tp_context(1)), the qwen2 cell's traffic",
+         nvidia_smi=card_line(), identical_to_plain_engine=True,
+         tokens_per_s={"plain": base_run["tokens_per_s"],
+                       "tp1": tp_run["tokens_per_s"]},
+         wall_s={"plain": base_run["wall_s"], "tp1": tp_run["wall_s"]},
+         steps_replayed={"plain": base_run["steps_replayed"],
+                         "tp1": tp_run["steps_replayed"]},
+         captures={"plain": base_run["captures"],
+                   "tp1": tp_run["captures"]},
+         k1_launches_per_step=tp_run["device_launches"] / eng.steps,
+         kernel_launches=tp_run["kernel_launches"],
+         device_launches=tp_run["device_launches"],
+         graph_kernels_added_per_capture={
+             k: v - bk.get(k, 0) for k, v in tk.items()
+             if v != bk.get(k, 0)},
+         graph_kernels_dropped_per_capture={
+             k: v for k, v in bk.items() if k not in tk},
+         graph_node_types={"signature": list(key),
+                           "plain": graph_node_types(
+                               bprog._graphs[key][0].raw_cuda_graph()),
+                           "tp1": graph_node_types(
+                               tprog._graphs[key][0].raw_cuda_graph())},
+         device_kv_bytes=m["device_kv_bytes"],
+         kv_bytes_global=m["kv_bytes_global"])
+    return [tp_run["kernel_launches"]["paged_decode_attention"],
+            tp_run["device_launches"]]
 
 
 # ---------------------------------------------------------- tiered serve
@@ -1589,10 +1693,12 @@ TIER_STORES = {
          "blocks, disk tier of 512 blocks"}
 
 
-def tiered_run(name, cfg, params, dev, waves, kw, blk, card) -> tuple:
+def tiered_run(name, cfg, params, dev, waves, kw, blk, card,
+               kv_shard=None) -> tuple:
     """One run of ``tiered_serve``: the store of ``name``, two waves each
     submitted and run, captured steps; K1 counted as ``timed_serve``
-    counts it and each pool's transfers timed."""
+    counts it and each pool's transfers timed. Returns (the run's
+    summary, its tokens, its three eviction logs and ``metrics()``)."""
     cap = 96 * blk
     disk_dir = None
     pool_blocks = None
@@ -1614,7 +1720,7 @@ def tiered_run(name, cfg, params, dev, waves, kw, blk, card) -> tuple:
     eng = ServeEngine(cfg, params, max_slots=kw["slots"],
                       max_seq=kw["max_seq"], store=store,
                       prefill_chunk=kw["chunk"], paged=True, device=dev,
-                      pool_blocks=pool_blocks)
+                      pool_blocks=pool_blocks, kv_shard=kv_shard)
     clock = TransferClock()
     clock.wrap(eng.pool, "read_rows", "device_to_host")
     clock.wrap(eng.pool, "write_rows", "host_to_device")
@@ -1672,14 +1778,17 @@ def tiered_run(name, cfg, params, dev, waves, kw, blk, card) -> tuple:
                               if hp is not None else 0),
         "transfers": clock.summary()}
     tokens = [r.generated for r in reqs]
+    detail = {"logs": [getattr(store, log, None) for log in (
+        "eviction_log", "host_eviction_log", "disk_eviction_log")],
+              "metrics": m}
     eng.close()
     if disk_dir is not None:
         assert not os.listdir(disk_dir), "close() left disk tier files"
         os.rmdir(disk_dir)
-    return out, tokens
+    return out, tokens, detail
 
 
-def tiered_serve(cfg, params, dev, wave1, kw) -> None:
+def tiered_serve(cfg, params, dev, wave1, kw, tp_ctx) -> None:
     """The compressed tier ladder on full-width qwen2-7b: two waves of 16
     requests (wave 1 ``serve_phase``'s prompts; wave 2 the same 4 shared
     prefixes with fresh 64-token suffixes) through five stores: (e) an
@@ -1689,7 +1798,10 @@ def tiered_serve(cfg, params, dev, wave1, kw) -> None:
     host tier of 32 blocks over a disk tier of 512. (b) and (d) must
     demote and promote, take (e)'s engine steps and generate (e)'s
     tokens, and prefill fewer tokens in wave 2 than (a); (c)'s agreement
-    with (b) is printed."""
+    with (b) is printed. Then (c) again on the TP path at tp=1
+    (``tp_ctx``), its int8 scales' amax all-reduced over the one-rank
+    group: tokens, the three eviction logs and ``metrics()`` equal to
+    (c)'s."""
     rng = np.random.default_rng(3)
     wave2 = [wave1[i % 4][:512] + list(rng.integers(0, cfg.vocab, 64))
              for i in range(16)]
@@ -1701,12 +1813,19 @@ def tiered_serve(cfg, params, dev, wave1, kw) -> None:
     blk = probe.pool.block_nbytes
     del probe
     card = card_line()
-    runs, tokens = {}, {}
+    runs, tokens, detail = {}, {}, {}
     for name in TIER_RUNS:
-        runs[name], tokens[name] = tiered_run(
+        runs[name], tokens[name], detail[name] = tiered_run(
             name, cfg, params, dev, (wave1, wave2), kw, blk, card)
         emit("tiered_serve_run", run=name, **runs[name])
         gc.collect()
+    tp_run, tp_tokens, tp_detail = tiered_run(
+        "c", cfg, params, dev, (wave1, wave2), kw, blk, card,
+        kv_shard=tp_ctx)
+    assert tp_tokens == tokens["c"]
+    assert tp_detail == detail["c"], "the TP int8 tier parted from (c)"
+    emit("tiered_serve_run", run="c_tp1", identical_to_c=True, **tp_run)
+    gc.collect()
     for name in ("b", "d"):
         r = runs[name]
         assert r["demotions"] > 0 and r["promotions"] > 0 \
@@ -2560,12 +2679,16 @@ def legacy_serve_phase(dev) -> int:
 # --------------------------------------------------------------- train
 
 
-def smoke_train(cfg, params, dev, batches, oc):
+def smoke_train(cfg, params, dev, batches, oc, compress=False):
     """Losses of ``len(batches)`` train steps from a copy of ``params``
-    on ``dev``."""
+    on ``dev`` (with ``compress``, through cross-pod gradient
+    compression)."""
     params = tree_map(lambda t: t.to(dev).clone(), params)
     state = {"params": params, "opt": adamw_init(params)}
-    step = build_train_step(cfg, TrainConfig(opt=oc))
+    if compress:
+        state["ef"] = ef_init(params)
+    step = build_train_step(cfg, TrainConfig(opt=oc,
+                                             compress_pod_grads=compress))
     losses = []
     for b in batches:
         state, m = step(state, {k: torch.from_numpy(v).to(dev)
@@ -2578,9 +2701,13 @@ def train_parity_phase(dev) -> None:
     """The smoke configs in f32, 3 steps from the same weights and the
     loader's batches: the card (K3 for every attention, K5 for every R
     layer, K4 for every W layer) against the CPU (the reference's routes,
-    plain versions); losses within ``TRAIN_LOSS_RTOL`` relative."""
+    plain versions); losses within ``TRAIN_LOSS_RTOL`` relative. qwen2
+    also with cross-pod gradient compression."""
     oc = OptConfig(total_steps=3, warmup_steps=1)
-    for arch in ("qwen2_7b", "gemma2_27b", "recurrentgemma_9b", "rwkv6_3b"):
+    for arch, compress in (("qwen2_7b", False), ("qwen2_7b", True),
+                           ("gemma2_27b", False),
+                           ("recurrentgemma_9b", False),
+                           ("rwkv6_3b", False)):
         cfg = configs.get(arch, smoke=True).replace(dtype=torch.float32)
         params = init_params(model_spec(cfg),
                              torch.Generator().manual_seed(0), "cpu",
@@ -2588,9 +2715,9 @@ def train_parity_phase(dev) -> None:
         loader = TrainLoader(LoaderConfig(global_batch=2, seq_len=64,
                                           vocab=cfg.vocab, seed=0))
         batches = [loader.build_batch(i) for i in range(3)]
-        cpu = smoke_train(cfg, params, "cpu", batches, oc)
+        cpu = smoke_train(cfg, params, "cpu", batches, oc, compress)
         card, launches = counted(
-            lambda: smoke_train(cfg, params, dev, batches, oc))
+            lambda: smoke_train(cfg, params, dev, batches, oc, compress))
         if set(cfg.layer_pattern) & {"G", "L"}:
             assert launches["flash_attention"] > 0, launches
         if "W" in cfg.layer_pattern:
@@ -2601,6 +2728,7 @@ def train_parity_phase(dev) -> None:
         rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
         assert rel <= TRAIN_LOSS_RTOL, (arch, card, cpu)
         emit("train_parity", config=f"{arch} smoke f32", steps=3,
+             compress_pod_grads=compress,
              seq_len=64, batch=2, losses_card=card, losses_cpu=cpu,
              max_rel_diff=rel, rtol=TRAIN_LOSS_RTOL,
              kernel_launches=launches)
@@ -2851,6 +2979,60 @@ def train_resume_phase(dev) -> None:
              launcher=launcher, seconds=time.time() - t_phase)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def train_compressed_phase(dev) -> None:
+    """rwkv6-3b at full width cut to 4 layers (bf16, seeded random
+    weights, batch 2 x 4096 from ``TrainLoader``): 4 AdamW steps from the
+    same fresh state without and with ``compress_pod_grads`` (every
+    gradient through the int8 round trip with error feedback before
+    AdamW): step ms, losses (the first, taken before any update, equal),
+    the residuals' norm and largest magnitude, K4 launches (8 a step)."""
+    cfg = configs.get("rwkv6_3b").replace(n_layers=4)
+    loader = TrainLoader(LoaderConfig(global_batch=2, seq_len=4096,
+                                      vocab=cfg.vocab, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in loader.build_batch(i).items()}
+               for i in range(4)]
+    runs = {}
+    for compress in (False, True):
+        tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1),
+                         compress_pod_grads=compress)
+        state = make_train_state(cfg, tc, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        step_fn = build_train_step(cfg, tc)
+        ms, losses = [], []
+
+        def go():
+            nonlocal state
+            for b in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step_fn(state, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(m["loss"].item())
+        _, launches = counted(go)
+        assert launches["rwkv6_wkv"] == 2 * cfg.n_layers * len(batches), \
+            launches
+        assert all(math.isfinite(x) for x in losses), losses
+        run = {"step_ms": ms, "losses": losses,
+               "kernel_launches": {k: v for k, v in launches.items() if v}}
+        if compress:
+            ef = [t.float() for _, t in tree_paths(state["ef"])]
+            run["ef_norm"] = math.sqrt(sum((t * t).sum().item()
+                                           for t in ef))
+            run["ef_max_abs"] = max(t.abs().max().item() for t in ef)
+            assert math.isfinite(run["ef_norm"]) and run["ef_norm"] > 0
+        runs["compressed" if compress else "plain"] = run
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert runs["compressed"]["losses"][0] == runs["plain"]["losses"][0]
+    emit("train_compressed", config="rwkv6_3b full width cut to 4 layers, "
+         "bf16, random weights (seed 0), batch 2 x 4096 (TrainLoader)",
+         nvidia_smi=card_line(), steps=len(batches), **runs,
+         compression_ratio_bf16=compression_ratio(torch.bfloat16))
 
 
 def launcher_resume(root) -> dict:
@@ -3732,7 +3914,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity_phase(dev)
     train_parity_phase(dev)
-    k1_launches, k1_runs = serve_phase(dev)
+    k1_launches, k1_runs, k1_tp = serve_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()       # the qwen2 weights go before gemma2's
     k2_launches, k2_runs = gather_serve_phase(dev)
@@ -3762,6 +3944,9 @@ def main() -> int:
     train_resume_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    train_compressed_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     k3_vlm = vlm_train_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3779,8 +3964,11 @@ def main() -> int:
                     paligemma_S64=k1["paligemma_S64"],
                     codeqwen_S1=k1["codeqwen_S1"],
                     codeqwen_S64=k1["codeqwen_S64"],
+                    qwen2_tp2_S1=k1["qwen2_tp2_S1"],
+                    qwen2_tp2_S64=k1["qwen2_tp2_S64"],
                     launches_by_path={
                         "qwen2_7b_paged_serve": [k1_launches, k1_runs],
+                        "qwen2_7b_paged_serve_tp1": k1_tp,
                         "moonshot_v1_16b_a3b_paged_serve": k1_moe["moonshot"],
                         "llama4_maverick_GM_paged_serve":
                             k1_moe["llama4_GM"],

@@ -1,8 +1,8 @@
 """Serving entry point: continuous batching + LERC prefix cache; mirrors
-``src/repro/launch/serve.py`` for the planes the port has (tp=1): the
-paged and gather planes, the compressed tier ladder (``--host-cache-kb``,
-``--kv-quant``, ``--disk-cache-mb``), the timed front door (``--arrival``),
-the sharded tier (``--shards``) and the fault plan.
+``src/repro/launch/serve.py``: the paged and gather planes, the
+compressed tier ladder (``--host-cache-kb``, ``--kv-quant``,
+``--disk-cache-mb``), the timed front door (``--arrival``), the sharded
+tier (``--shards``), tensor parallelism (``--tp``) and the fault plan.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 16 --slots 8 --max-seq 640 --shared-prefix 512 \\
@@ -17,16 +17,25 @@ clamped to 1. With ``--arrival`` requests arrive on a timed trace (Poisson
 percentiles and goodput on the virtual clock. ``--shards K`` serves
 through a ``ShardedFrontend`` of K engines on one coordination bus, the
 store's byte budgets split across them, and proves the replicas coherent
-after the run. Runs on the GPU unless ``--device cpu`` asks for the CPU
-(where the attention kernels run their plain versions); without a GPU the
-default raises. Weights are seeded random (``--seed``), made by the port's
-own init. ``--tp`` is not ported.
+after the run. ``--tp N`` shards every engine's paged KV pool (and the
+attention reading it) over N ranks, one process each, which the launcher
+starts itself (``launch/ranks.py``), or joins when ``RANK`` and
+``WORLD_SIZE`` are set (``torchrun``): one card a rank on CUDA (N visible
+cards needed), gloo on the CPU. Rank 0 prints the report; each rank's
+disk tier takes a ``rank{r}`` subdirectory of ``--disk-dir``, and a rank
+that fails makes the launcher exit non-zero. Runs on the GPU unless
+``--device cpu`` asks for the CPU (where the attention kernels run their
+plain versions); without a GPU the default raises. Weights are seeded
+random (``--seed``), made by the port's own init, the same on every rank.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import sys
 import time
 
@@ -42,7 +51,14 @@ from ..serve import (BudgetedScheduler, PrefixStore, ServeEngine,
                      ShardedFrontend, TieredKVStore, TracedRequest,
                      latency_stats, play_trace)
 from ..serve.engine import resolve_device
+from ..sharding import rank_dir
 from ..sim import bursty_arrivals, diurnal_arrivals, poisson_arrivals
+from . import ranks
+
+# seconds the launcher waits for its ranks, and a rank's collective for
+# its peers
+TP_DEADLINE = 3600.0
+TP_GROUP_TIMEOUT = 300.0
 
 _ARRIVALS = {"poisson": poisson_arrivals, "bursty": bursty_arrivals,
              "diurnal": diurnal_arrivals}
@@ -99,6 +115,13 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk tier's memmap files "
                          "(default: a TemporaryDirectory per engine)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism: shard every KV pool leaf "
+                         "(and the paged attention reading it) over N "
+                         "ranks, one process each, started by the "
+                         "launcher (one card a rank on CUDA, gloo on the "
+                         "CPU); block tables and the whole store stay "
+                         "rank-invariant. Paged plane only")
     ap.add_argument("--shards", type=int, default=1,
                     help="cache shards: >1 runs a ShardedFrontend of "
                          "independent engines on the coordination plane, "
@@ -167,6 +190,9 @@ def serve_main(argv=None) -> int:
     if args.prefill_budget is not None and args.scheduler != "budgeted":
         ap.error(f"--prefill-budget only applies to --scheduler budgeted "
                  f"(got --scheduler {args.scheduler})")
+    if args.tp > 1 and args.paged is False:
+        ap.error("--tp > 1 shards the paged KV pool; it cannot run on the "
+                 "gather plane forced by --no-paged-attention")
     if args.fault_seed is not None and args.fault_plan is None:
         ap.error("--fault-seed overrides a plan's seed; pass --fault-plan")
     injector = None
@@ -184,6 +210,29 @@ def serve_main(argv=None) -> int:
         injector = plan.injector()
 
     device = resolve_device(args.device)
+    if args.tp > 1 and "RANK" not in os.environ:
+        if device.type == "cuda" and torch.cuda.device_count() < args.tp:
+            ap.error(f"--tp {args.tp} needs {args.tp} visible cards, one a "
+                     f"rank; {torch.cuda.device_count()} are visible")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return ranks.spawn(["-m", "repro_torch.launch.serve", *argv],
+                           args.tp, timeout=TP_DEADLINE)
+    if args.tp == 1:
+        return _serve(args, device, injector)
+    device = ranks.init_rank(device.type, TP_GROUP_TIMEOUT)
+    try:
+        if int(os.environ["RANK"]) == 0:
+            return _serve(args, device, injector)
+        # rank 0 reports and writes the files; the others run the same
+        # engines silently
+        args.trace = args.metrics_json = None
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _serve(args, device, injector)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve(args, device, injector) -> int:
     cfg = configs.get(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(model_spec(cfg), gen, device, dtype=cfg.dtype)
@@ -216,14 +265,16 @@ def serve_main(argv=None) -> int:
             disk_capacity_bytes=disk_bytes // args.shards,
             disk_dir=args.disk_dir,
             paged=args.paged, scheduler=scheduler,
-            max_queue=args.max_queue, faults=injector, device=device)
+            max_queue=args.max_queue, tp=args.tp, faults=injector,
+            device=device)
     else:
         if host_bytes > 0:
             store: PrefixStore = TieredKVStore(
                 capacity_bytes=args.cache_kb * 1024, policy=args.policy,
                 block_tokens=args.block_tokens,
                 host_capacity_bytes=host_bytes, kv_quant=args.kv_quant,
-                disk_capacity_bytes=disk_bytes, disk_dir=args.disk_dir)
+                disk_capacity_bytes=disk_bytes,
+                disk_dir=rank_dir(args.disk_dir, args.tp))
             # disk-error / slow-promotion injection: attach before the
             # engine wires the pools so the disk pool inherits the injector
             store.faults = injector
@@ -236,7 +287,7 @@ def serve_main(argv=None) -> int:
                           prefill_chunk=args.prefill_chunk,
                           pool_blocks=args.pool_blocks, paged=args.paged,
                           scheduler=scheduler, max_queue=args.max_queue,
-                          device=device)
+                          tp=args.tp, device=device)
 
     recorder = None
     if args.trace is not None:
@@ -290,7 +341,7 @@ def serve_main(argv=None) -> int:
             m[name] = injector.counters[name]
     paged_on = (all(e.paged for e in eng.shards) if args.shards > 1
                 else eng.paged)
-    print(f"policy={args.policy}  shards={args.shards}  tp=1  "
+    print(f"policy={args.policy}  shards={args.shards}  tp={args.tp}  "
           f"paged={'on' if paged_on else 'off'}  "
           f"scheduler={args.scheduler}"
           + (f"  arrival={args.arrival}@{args.arrival_rate}"

@@ -87,23 +87,27 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                seq_lens=None, paged_tables=None):
+                seq_lens=None, paged_tables=None, kv_shard=None):
     """(logits (B,1,V), cache), the cache written in place. tokens: (B,S)
     — S=1 for plain decode, S>1 for chunked prefill (per-row start
     ``pos``, real lengths ``seq_lens``; G and M layers only). pos: one
     int shared by every row or (B,) per slot. ``paged_tables`` (B, NW):
     ``cache`` is the KV pool tree and decode runs straight out of the pool
-    rows each row's block table names. The encoder-decoder family decodes
+    rows each row's block table names; ``kv_shard``
+    (``sharding.KVShardCtx``): the pool leaves hold this rank's KV heads
+    and each attention runs on the rank's head slice, its outputs
+    all-gathered over heads. The encoder-decoder family decodes
     one token with one shared position from ``encdec_prefill_cache``'s
     cache, and raises on the rest, as the reference does."""
     if cfg.family == "encdec":
         if seq_lens is not None or tokens.shape[1] != 1 \
-                or paged_tables is not None:
+                or paged_tables is not None or kv_shard is not None:
             raise NotImplementedError(
                 "chunked/paged decode is decoder-LM only (encdec is S=1)")
         return ED.encdec_decode_step(cfg, params, cache, tokens, pos)
     return LM.lm_decode_step(cfg, params, cache, tokens, pos,
-                             seq_lens=seq_lens, paged_tables=paged_tables)
+                             seq_lens=seq_lens, paged_tables=paged_tables,
+                             kv_shard=kv_shard)
 
 
 # ---------------------------------------------------------------------------

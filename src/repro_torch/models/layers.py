@@ -14,6 +14,7 @@ precomputed keys and values (``cross_kv_spec``, ``make_cross_kv``).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Optional
 
 import torch
@@ -226,6 +227,25 @@ def _paged_write_attend(cfg: ModelConfig, q, k, v, kp, vp, tables, lens,
     return out, kp, vp
 
 
+def _paged_write_attend_tp(cfg: ModelConfig, kv_shard, q, k, v, kp, vp,
+                           tables, lens, cache_pos):
+    """Tensor-parallel paged write+attend on one rank of ``kv_shard``: the
+    rank's contiguous slice of the query heads and of the chunk's k/v
+    heads (under GQA packing an H/tp query slice owns exactly its KV
+    slice's head groups) go through ``_paged_write_attend`` against the
+    rank's head-sliced pool pages, and the outputs are all-gathered over
+    heads, so the (replicated) ``wo`` projection runs on the full head
+    set in single-device order on every rank: the tokens are those of
+    tp=1 (a sum of partial ``wo`` products would change the order). The
+    kernel takes contiguous inputs, so the query slice is a copy. The
+    collective runs at tp=1 too."""
+    hq, hkv = kv_shard.heads(q.shape[2]), kv_shard.heads(k.shape[2])
+    out, kp, vp = _paged_write_attend(cfg, q[:, :, hq].contiguous(),
+                                      k[:, :, hkv], v[:, :, hkv], kp, vp,
+                                      tables, lens, cache_pos)
+    return kv_shard.gather_heads(out), kp, vp
+
+
 def _write_per_slot(cache, tpos, val) -> None:
     """``cache[b, tpos[b, j]] = val[b, j]`` in place, for a (B, S, KV, D)
     cache and (B, Sq) positions. A position past the cache's end is
@@ -281,7 +301,7 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
               cache: Optional[Dict] = None, cache_pos=None,
               cache_valid_len=None, paged: Optional[Dict] = None,
               cross_kv=None, bidirectional: bool = False,
-              prefix_len: int = 0):
+              prefix_len: int = 0, kv_shard=None):
     """Attention layer (proj → rope → attend → proj). Returns (out, cache).
 
       * training/prefill: ``cache=None``; causal (or bidirectional)
@@ -299,7 +319,9 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
       * paged: ``cache`` = {"k","v"} per-layer KV *pool* views
         (num_blocks, bt, KV, D) and ``paged`` = {"tables": (B, NW) pool
         rows in chain order, "seq_lens": (B,) real tokens per row}.
-        Absolute positions only (G layers).
+        Absolute positions only (G layers). With ``kv_shard`` (serve
+        tensor parallelism) the pages hold this rank's KV heads and the
+        attention runs ``_paged_write_attend_tp``.
       * gather: ``cache`` = {"k","v"} (B, S_cache, KV, D); the chunk is
         written at slot ``cache_pos`` — (B,) per slot (continuous
         batching) or one shared scalar (bulk) — and query token j attends
@@ -330,9 +352,10 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
                               prefix_len=prefix_len)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
     if paged is not None:
-        out, ck, cv = _paged_write_attend(cfg, q, k, v, cache["k"],
-                                          cache["v"], paged["tables"],
-                                          paged["seq_lens"], cache_pos)
+        fn = (partial(_paged_write_attend_tp, cfg, kv_shard)
+              if kv_shard is not None else partial(_paged_write_attend, cfg))
+        out, ck, cv = fn(q, k, v, cache["k"], cache["v"], paged["tables"],
+                         paged["seq_lens"], cache_pos)
         return (torch.einsum("bshk,hkd->bsd", out, params["wo"]),
                 {"k": ck, "v": cv})
     ck, cv = cache["k"], cache["v"]

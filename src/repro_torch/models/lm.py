@@ -113,7 +113,7 @@ def _unit_keys(pat: str) -> List[str]:
 
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
-                    paged=None, prefix_len: int = 0):
+                    paged=None, prefix_len: int = 0, kv_shard=None):
     """One sublayer. Without ``cache`` the training/prefill form (L and R
     layers see ``cfg.window``; attention sees an image prefix of
     ``prefix_len`` positions); with it a decode, which writes the layer's
@@ -147,7 +147,7 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                               window=window, cache=cache,
                               cache_pos=cache_pos,
                               cache_valid_len=cache_valid_len, paged=paged,
-                              prefix_len=prefix_len)
+                              prefix_len=prefix_len, kv_shard=kv_shard)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
@@ -263,7 +263,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                   seq_lens=None, paged_tables=None):
+                   seq_lens=None, paged_tables=None, kv_shard=None):
     """One decode step over a chunk of S tokens per row. tokens: (B,S);
     pos: (B,) int32 per-slot start positions (continuous batching), or one
     int shared by every row (bulk decode). For L layers the cache is a
@@ -281,7 +281,10 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     attended out of — the pool rows its block table names. Chunks (S > 1)
     and the paged plane need absolute-position caches (G and M layers).
     R and W layers decode one token from their recurrent state. Either
-    way the cache is written in place.
+    way the cache is written in place. ``kv_shard`` (a
+    ``sharding.KVShardCtx``, serve tensor parallelism, paged plane only):
+    the pool leaves hold this rank's KV heads and each attention runs on
+    the rank's head slice, its outputs all-gathered over heads.
 
     Returns (logits (B,1,vocab), cache)."""
     pat, n_rep, tail = unit_pattern(cfg)
@@ -299,6 +302,8 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         assert per_slot and seq_lens is not None, \
             "paged decode needs per-slot positions and seq_lens"
         paged = {"tables": paged_tables, "seq_lens": seq_lens}
+    assert kv_shard is None or paged is not None, \
+        "serve TP (kv_shard) only shards the paged data plane"
     h = L.embed(cfg, params["embed"], tokens)
     steps = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
     positions = pos[:, None].int() + steps if per_slot else pos + steps
@@ -321,7 +326,7 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                                cache=layer_cache,
                                cache_pos=sub_cache_pos(kind),
                                cache_valid_len=sub_valid_len(kind),
-                               paged=paged)
+                               paged=paged, kv_shard=kv_shard)
 
     for li in range(n_rep):
         for key in _unit_keys(pat):

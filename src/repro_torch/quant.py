@@ -31,8 +31,8 @@ accounting: it includes the f32 scale-array overhead and prices the
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,13 +118,18 @@ class QuantSpec:
     int8; 448, the float8_e4m3fn max, for fp8). ``rt_bound`` bounds the
     round-trip error: ``|x - dequant(quant(x))| <= rt_bound * amax(block)``
     element-wise. ``dtype`` is the torch dtype of the quantized elements,
-    ``storage`` the numpy dtype the host keeps them in. Frozen and
-    hashable."""
+    ``storage`` the numpy dtype the host keeps them in. ``reduce_amax``,
+    when set, maps each block's amax to its max over the ranks of a
+    tensor-parallel group (``sharding.KVShardCtx.bind``): a rank holding
+    a head slice of the block then scales it as the whole block scales;
+    it takes no part in equality. Frozen and hashable."""
 
     name: str
     qmax: float
     dtype: torch.dtype
     rt_bound: float
+    reduce_amax: Optional[Callable[[torch.Tensor], torch.Tensor]] = field(
+        default=None, compare=False, repr=False)
 
     @property
     def itemsize(self) -> int:
@@ -187,7 +192,10 @@ def quantize_blocks(x: torch.Tensor, spec: QuantSpec
     has ``x``'s shape in ``spec.dtype`` and ``scales`` drops the trailing
     three axes. Both divides are true divisions, as the numpy twin's."""
     xf = x.to(torch.float32)
-    scale = _scale(xf.abs().amax(dim=_AXES, keepdim=True), spec)
+    amax = xf.abs().amax(dim=_AXES, keepdim=True)
+    if spec.reduce_amax is not None:
+        amax = spec.reduce_amax(amax)
+    scale = _scale(amax, spec)
     q = _encode(xf / scale, spec)
     return q, scale.reshape(scale.shape[:-3])
 
@@ -215,6 +223,8 @@ def quantize_blocks_np(x, spec: QuantSpec) -> Tuple[np.ndarray, np.ndarray]:
     as ``uint8`` bit patterns), bit-identical to the reference's."""
     xf = _f32_np(x)
     amax = np.max(np.abs(xf), axis=_AXES, keepdims=True)
+    if spec.reduce_amax is not None:
+        amax = spec.reduce_amax(torch.from_numpy(amax)).numpy()
     scale = np.maximum(amax, _EPS) / spec.qmax
     y = xf / scale
     if spec.is_int:

@@ -42,15 +42,27 @@ on both of its data planes.
   in place, so the captured steps stay valid. ``close()`` tears the disk
   tier's files down.
 
+* **Tensor parallelism** (``tp > 1`` or ``kv_shard``, a
+  ``sharding.KVShardCtx``; paged plane only) — one process per rank, each
+  running this engine on replicated weights: a rank's pool (and its host
+  and disk tiers) holds its ``KV/tp`` heads of every leaf, its attention
+  runs on its head slice and all-gathers the outputs over heads before
+  ``wo``, and every host-side decision (admission, block tables, the
+  store's evictions, demotions and promotions) is the same on every rank,
+  since the store prices global bytes and quantized tiers scale each
+  block by its amax over the group. The tokens are those of tp=1. Each
+  rank's disk tier needs a directory of its own, which whoever builds the
+  store chooses (``launch/serve.py`` and ``ShardedFrontend`` add a
+  ``rank{r}`` subdirectory).
+
 Store-visible behaviour (the sequence of ``register_request`` / ``lookup``
 / ``insert`` / ``complete_request`` calls and so every eviction, demotion
 and promotion decision) is the reference engine's, op for op:
 ``tests/test_torch_engine.py`` and ``tests/test_torch_tiered.py`` hold the
 two to identical tokens, eviction logs and metrics.
 
-Not ported yet, and refused with ``NotImplementedError``: serve tensor
-parallelism. ``step_hlo`` is refused too: the port's step has no HLO; on
-the card it is a captured CUDA graph.
+``step_hlo`` is refused with ``NotImplementedError``: the port's step has
+no HLO; on the card it is a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -67,6 +79,7 @@ from ..models.api import decode_cache_shapes, init_decode_cache
 from ..models.common import ModelConfig, tree_map, tree_paths
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
+from ..sharding import KVShardCtx, serve_tp_context
 from .disk_pool import DiskBlockPool
 from .host_pool import HostBlockPool
 from .kv_pool import KVBlockPool, chain_block_nbytes
@@ -130,19 +143,18 @@ class ServeEngine:
                  max_queue: Optional[int] = None,
                  clock: Optional[StepCostModel] = None,
                  eos_interval: int = 8, tp: int = 1,
-                 kv_shard=None,
+                 kv_shard: Optional[KVShardCtx] = None,
                  device: Union[str, torch.device, None] = None,
                  cuda_graphs: Optional[bool] = None) -> None:
         """``cuda_graphs``: run each step as a captured CUDA graph (None:
         on the card yes, on the CPU no, as ``decode_kernel="auto"``
-        chooses; True on the CPU raises)."""
+        chooses; True on the CPU raises). ``tp > 1`` without ``kv_shard``
+        takes this process's rank in the initialized group
+        (``serve_tp_context``)."""
         self.device = resolve_device(device)
         if cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
                              f"{self.device}: the CPU runs the step eagerly")
-        if tp != 1 or kv_shard is not None:
-            raise NotImplementedError(
-                "serve tensor parallelism is not ported yet")
         # KV leaves as meta tensors: shapes and dtypes, no memory
         template = tree_map(
             lambda s: torch.empty(s, dtype=cfg.dtype, device="meta"),
@@ -169,7 +181,22 @@ class ServeEngine:
         # full store machinery (lookups, evictions) but pay prefill
         # recompute instead of a restore
         self.restore_prefix = absolute_kv
-        self.tp = 1
+        # ----- serve tensor parallelism: shard the paged KV pool (and the
+        # attention reading it) over the ranks of a group, one process
+        # each. Params and per-step host arrays are replicated; block
+        # tables, refcounts, and the whole store stay rank-invariant — a
+        # pool row index means the same block on every rank.
+        if kv_shard is None and tp > 1:
+            kv_shard = serve_tp_context(tp, self.device)
+        if kv_shard is not None:
+            if not paged:
+                raise ValueError(
+                    "tensor parallelism shards the paged data plane; "
+                    f"pattern {cfg.layer_pattern!r} (or --no-paged-"
+                    "attention) runs the gather engine, which is tp=1 only")
+            kv_shard.validate(cfg)
+        self.kv_shard = kv_shard
+        self.tp = kv_shard.tp if kv_shard is not None else 1
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.B = max_slots
@@ -191,7 +218,8 @@ class ServeEngine:
             pool_blocks = int(min(by_capacity, _DEFAULT_POOL_BLOCKS))
             if self.paged:
                 pool_blocks += self.B * self.table_width + 1
-        self.pool = KVBlockPool(template, bt, pool_blocks, self.device)
+        self.pool = KVBlockPool(template, bt, pool_blocks, self.device,
+                                shard_ctx=self.kv_shard)
         if self.paged:
             self.cache = None
             # every right-padded / inactive-slot token is scattered into
@@ -213,6 +241,12 @@ class ServeEngine:
             # card. With a quant format the pool stores transcoded rows,
             # so the same budget holds ~itemsize-ratio more blocks. Tier
             # 2, when budgeted, is a memmap pool mirroring the host layout.
+            # Under TP both hold this rank's head slice, and a quantize
+            # takes each block's amax over the group.
+            if self.kv_shard is not None:
+                self.store.quant = self.kv_shard.bind(self.store.quant)
+                self.store.disk_quant = self.kv_shard.bind(
+                    self.store.disk_quant)
             host_pool = HostBlockPool.for_device_pool(
                 template, self.pool, self.store.host_capacity,
                 quant=self.store.quant,
@@ -231,7 +265,7 @@ class ServeEngine:
             cfg, self.params, slots=self.B, paged=self.paged, eos_id=eos_id,
             device=self.device,
             capture=(self.device.type == "cuda" if cuda_graphs is None
-                     else cuda_graphs))
+                     else cuda_graphs), kv_shard=self.kv_shard)
         self._rid = itertools.count(1)
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * self.B
@@ -700,10 +734,9 @@ class ServeEngine:
             "(serve/step_graph.py), on the CPU it runs eagerly")
 
     # -------------------------------------------------------------- metrics
-    def _kv_bytes(self) -> int:
-        cache = 0 if self.cache is None else sum(
+    def _cache_bytes(self) -> int:
+        return 0 if self.cache is None else sum(
             t.numel() * t.element_size() for _, t in tree_paths(self.cache))
-        return self.pool.nbytes + cache
 
     def metrics(self) -> Dict[str, float]:
         m = dict(self.store.metrics())
@@ -721,11 +754,14 @@ class ServeEngine:
             "rejected": self.rejected,
             "cancellations": self.cancellations,
             "host_syncs_avoided": max(self.steps - self.readback_syncs, 0),
-            # per-device vs global KV bytes (pool plus the gather plane's
-            # per-slot caches); equal at tp=1, the only ported layout
+            # per-device vs global KV bytes, split EXPLICITLY: once the
+            # pool shards (tp>1) the two differ by a factor of tp, and
+            # "device_kv_bytes" keeps meaning what it says — bytes ONE
+            # device holds. (The gather cache only exists at tp=1.)
             "serve_tp": self.tp,
-            "device_kv_bytes": self._kv_bytes(),
-            "kv_bytes_global": self._kv_bytes(),
+            "device_kv_bytes": self.pool.nbytes_per_device
+            + self._cache_bytes(),
+            "kv_bytes_global": self.pool.nbytes + self._cache_bytes(),
             "prefill_saved_frac": (
                 self.prefill_tokens_skipped
                 / max(self.prefill_tokens + self.prefill_tokens_skipped, 1)),

@@ -25,6 +25,11 @@ failed pinned allocation raises. The tier never grows: its size is the
 operator's ``--host-cache-kb`` budget, and the tiered store's second
 eviction index frees rows before the byte budget is exceeded (blocks are
 uniform-size, so byte-room implies row-room).
+
+Under serve tensor parallelism each rank's tier holds the rank's head
+slice of every row (``for_device_pool`` builds it from the device pool's
+``tp``), and ``block_nbytes`` stays the global row's price: the budget,
+the row count and the byte metrics are those of the tier at tp=1.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from .. import quant as quantlib
 from ..models.common import tree_map
 from ..quant import QuantSpec
 from .kv_pool import (KVBlockPool, _pool_leaf_shape, _row_axis,
-                      quant_chain_block_nbytes)
+                      quant_chain_block_nbytes, rank_template)
 
 
 class HostBlockPool:
@@ -91,12 +96,16 @@ class HostBlockPool:
                         **kwargs) -> "HostBlockPool":
         """Size a pool to a byte budget, in whole blocks priced at the
         TRANSCODED row size — the same budget holds ~``itemsize`` times
-        more blocks when quantized."""
+        more blocks when quantized. ``cache_template`` has the global
+        shapes; the rows hold the device pool's head slice of them, priced
+        at the global row."""
         blk = quant_chain_block_nbytes(cache_template,
                                        device_pool.block_tokens, quant)
         num = capacity_bytes // max(blk, 1)
-        return cls(cache_template, device_pool.block_tokens, num,
-                   quant=quant, **kwargs)
+        pool = cls(rank_template(cache_template, device_pool.tp),
+                   device_pool.block_tokens, num, quant=quant, **kwargs)
+        pool.block_nbytes = blk
+        return pool
 
     # -------------------------------------------------------------- indices
     def alloc(self) -> int:

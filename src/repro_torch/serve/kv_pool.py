@@ -1,5 +1,5 @@
 """Device-resident paged KV block pool; mirrors
-``src/repro/serve/kv_pool.py`` (its unsharded half).
+``src/repro/serve/kv_pool.py``.
 
 The serving data plane's ONLY KV storage: one preallocated device buffer
 per KV cache leaf, shaped ``(*lead, num_blocks, block_tokens, KV, D)``
@@ -27,6 +27,15 @@ address, stay valid across promotions. Every transfer runs on the
 current stream, after the steps already queued on it: a demotion reads
 the rows those steps wrote, and the host reads its copy only once the
 copy has landed.
+
+Under serve tensor parallelism (``shard_ctx``, a ``sharding.KVShardCtx``)
+each rank's buffers hold its ``KV/tp`` heads of every leaf; row indices,
+refcounts and the free list stay rank-invariant, and every byte count the
+store prices (``block_nbytes``, ``nbytes``) is the global one, so every
+rank's store makes the decisions of the reference's. ``read_rows`` and
+``write_rows`` move the rank's head slice; a quantizing read scales each
+(row, layer) block by its amax over the group (the spec the engine binds
+to the context), as the whole block scales at tp=1.
 """
 from __future__ import annotations
 
@@ -45,6 +54,16 @@ def _pool_leaf_shape(leaf_shape: Tuple[int, ...], num_blocks: int,
     """Cache leaf (*lead, B, S, KV, D) -> pool (*lead, nb, bt, KV, D)."""
     return tuple(leaf_shape[:-4]) + (num_blocks, block_tokens) \
         + tuple(leaf_shape[-2:])
+
+
+def rank_template(cache_template, tp: int):
+    """``cache_template``'s leaves (*lead, B, S, KV, D) as meta tensors of
+    one tensor-parallel rank's ``KV/tp`` heads."""
+    return tree_map(
+        lambda leaf: torch.empty(
+            tuple(leaf.shape[:-2]) + (leaf.shape[-2] // tp, leaf.shape[-1]),
+            dtype=leaf.dtype, device="meta"),
+        cache_template)
 
 
 def _row_axis(pbuf: torch.Tensor) -> int:
@@ -151,19 +170,28 @@ def _to_device(arrays: List[np.ndarray], dtypes: List[torch.dtype],
 
 class KVBlockPool:
     """Refcounted paged block pool over an engine's KV cache tree, its
-    buffers on ``device``. ``cache_template`` gives the leaves' shapes and
-    dtypes (meta tensors will do)."""
+    buffers on ``device``. ``cache_template`` gives the leaves' global
+    shapes and dtypes (meta tensors will do); with ``shard_ctx`` the
+    buffers hold this rank's head slice of them."""
 
     def __init__(self, cache_template, block_tokens: int,
-                 num_blocks: int, device: torch.device | str) -> None:
+                 num_blocks: int, device: torch.device | str,
+                 shard_ctx=None) -> None:
         self.block_tokens = block_tokens
         self.num_blocks = max(int(num_blocks), 1)
         self.device = torch.device(device)
+        self.shard_ctx = shard_ctx
+        if shard_ctx is not None:
+            for leaf in _leaves(cache_template):
+                if leaf.shape[-2] % shard_ctx.tp:
+                    raise ValueError(
+                        f"KV pool leaf with {leaf.shape[-2]} KV heads "
+                        f"cannot shard over tp={shard_ctx.tp}")
         self.buffers = tree_map(
             lambda leaf: torch.zeros(
                 _pool_leaf_shape(leaf.shape, self.num_blocks, block_tokens),
                 dtype=leaf.dtype, device=self.device),
-            cache_template)
+            rank_template(cache_template, self.tp))
         self.free_list: List[int] = list(range(self.num_blocks - 1, -1, -1))
         self.refs: List[int] = [0] * self.num_blocks
         self.block_nbytes = chain_block_nbytes(cache_template, block_tokens)
@@ -200,8 +228,18 @@ class KVBlockPool:
         return self.num_blocks - len(self.free_list)
 
     @property
+    def tp(self) -> int:
+        return self.shard_ctx.tp if self.shard_ctx is not None else 1
+
+    @property
     def nbytes(self) -> int:
-        """Pool bytes (the quantity the store's byte budget prices)."""
+        """GLOBAL pool bytes, summed over every rank (the quantity the
+        store's byte budget prices)."""
+        return self.nbytes_per_device * self.tp
+
+    @property
+    def nbytes_per_device(self) -> int:
+        """Bytes this rank's device holds: ``nbytes / tp``."""
         return sum(leaf.numel() * leaf.element_size()
                    for leaf in _leaves(self.buffers))
 

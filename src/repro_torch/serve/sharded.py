@@ -30,12 +30,14 @@ restore means K-shard output is token-identical to the single engine
 (``tests/test_torch_sharded.py`` holds shards ∈ {1,2,4} to each other and
 to the reference's frontend).
 
-The port's frontend differs from the reference's in three ways only: it
+The port's frontend differs from the reference's in four ways only: it
 takes ``device`` (None: the card, as ``engine.resolve_device`` decides)
 and ``cuda_graphs`` and hands both to every engine, the crash rebuild's
-included; and it moves ``params`` onto that device once, so every shard
-and every rebuild serves from the same tensors (K shards hold one copy of
-the weights, not K).
+included; it moves ``params`` onto that device once, so every shard and
+every rebuild serves from the same tensors (K shards hold one copy of the
+weights, not K); and under tensor parallelism (``tp > 1``, one process a
+rank, each running this frontend) each rank's disk tiers take a
+``rank{r}`` subdirectory of a shard's.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from ..core import (BlockMeta, CacheMetrics, JobDAG, MessageBus, PeerTracker,
 from ..faults import FaultInjector, FaultPlan
 from ..obs.trace import TID_BUS as _TID_BUS, TID_ENGINE as _TID_ENGINE
 from ..models.common import tree_map
+from ..sharding import rank_dir
 from .engine import Request, ServeEngine, resolve_device
 from .prefix_store import PrefixStore
 from .scheduler import Scheduler, StepCostModel
@@ -143,8 +146,9 @@ class ShardedFrontend:
                 self._coordinated = store.policy.uses_completeness
             self._wire(k, store)
             # shards (cache partitioning) and tp (tensor parallelism of
-            # each shard's pool) compose: every engine shares one serve
-            # mesh, so K shards × tp devices all hold 1/tp of each pool
+            # each shard's pool) compose: every engine, and every crash
+            # rebuild, shares this process's group, so K shards × tp
+            # ranks all hold 1/tp of each pool
             self.shards.append(self._build_engine(store))
 
     def _build_store(self, k: int) -> PrefixStore:
@@ -157,8 +161,10 @@ class ShardedFrontend:
                 kv_quant=a["kv_quant"],
                 disk_capacity_bytes=a["disk_capacity_bytes"],
                 # each shard's memmap files live in their own subdir
-                disk_dir=(os.path.join(a["disk_dir"], f"shard{k}")
-                          if a["disk_dir"] else None))
+                # (under TP, each rank's in its own below that)
+                disk_dir=rank_dir(os.path.join(a["disk_dir"], f"shard{k}")
+                                  if a["disk_dir"] else None,
+                                  self._engine_args["tp"]))
             # attach BEFORE the engine builds the pools, so the disk pool
             # inherits the injector
             store.faults = self.faults

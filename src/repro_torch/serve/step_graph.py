@@ -21,6 +21,13 @@ results in place:
   pool's growth replaces them) drops them all. A capture that fails
   raises: nothing falls back to the eager step.
 
+Under serve tensor parallelism (``kv_shard``) the step holds the
+attention's all-gather over heads, and a captured graph holds the
+collective with it: the context warmed its group up by an eager
+collective when it was made, and a signature's first, eager run comes
+before its capture. The gather's output lives in the graph's memory pool,
+so a replay still overwrites only buffers the program owns.
+
 A kernel wrapper counts its launches on the host where it launches, so
 its ``launches`` counts the eager steps' launches and, once for each
 capture, the launch it records into the graph; a replay calls no
@@ -42,7 +49,7 @@ from ..models.common import ModelConfig
 from ..models.lm import lm_decode_step
 
 # CUgraphNodeType (cuda.h)
-_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 5
+_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -96,13 +103,16 @@ class StepProgram:
     """One batched decode step of ``slots`` rows over the KV tree it is
     handed (the pool's buffers on the paged plane, the per-slot caches on
     the gather plane), on ``device``; ``capture`` runs it as CUDA graphs
-    (card only)."""
+    (card only); ``kv_shard`` runs the paged attention on this rank's
+    heads."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int, paged: bool,
-                 eos_id: int, device: torch.device, capture: bool) -> None:
+                 eos_id: int, device: torch.device, capture: bool,
+                 kv_shard=None) -> None:
         self.cfg = cfg
         self.params = params
         self.paged = paged
+        self.kv_shard = kv_shard
         self.eos_id = eos_id
         self.device = device
         self.capture = capture
@@ -166,7 +176,7 @@ class StepProgram:
         logits, _ = lm_decode_step(self.cfg, self.params, kv, tok, pos,
                                    seq_lens=lens,
                                    paged_tables=self.tables if self.paged
-                                   else None)
+                                   else None, kv_shard=self.kv_shard)
         self.out.copy_(torch.argmax(logits[:, -1, :], dim=-1))
         if self.eos_id >= 0:
             emit, reset = meta[3].bool(), meta[4].bool()

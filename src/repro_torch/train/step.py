@@ -1,11 +1,14 @@
 """Train-step builder: loss and gradients → (optional) microbatch
-accumulation in fp32 → AdamW; mirrors ``src/repro/train/step.py``.
+accumulation in fp32 → (optional) cross-pod gradient compression → AdamW;
+mirrors ``src/repro/train/step.py``.
 
 Where the reference jits a pure function of the state, the port's step
 runs eagerly and updates the state's parameters and moments in place
 (``optimizer.adamw_update``); it returns the same state dict. Gradients
 come from ``torch.autograd.grad`` on detached leaves, so the parameters
-carry no ``.grad``. Cross-pod gradient compression is not ported.
+carry no ``.grad``. With ``compress_pod_grads`` the state carries the
+error-feedback residuals under ``"ef"`` and AdamW sees the int8 round
+trip of each gradient (``compression.compress_grads``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..models import init_params, loss_fn, model_spec
 from ..models.common import ModelConfig, tree_paths, unflatten
+from .compression import compress_grads, ef_init
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 
@@ -26,27 +30,23 @@ class TrainConfig:
     compress_pod_grads: bool = False
 
 
-def _check(tc: TrainConfig) -> None:
-    if tc.compress_pod_grads:
-        raise NotImplementedError(
-            "cross-pod gradient compression is not ported")
-
-
 def make_train_state(cfg: ModelConfig, tc: TrainConfig,
                      generator: torch.Generator,
                      device: torch.device | str) -> Dict[str, Any]:
     """Seeded parameters (``init_params`` from ``generator``, which lives
-    on ``device``) in the model dtype and zero AdamW moments."""
-    _check(tc)
+    on ``device``) in the model dtype, zero AdamW moments and, with
+    ``compress_pod_grads``, zero error-feedback residuals."""
     params = init_params(model_spec(cfg), generator, device, dtype=cfg.dtype)
-    return {"params": params, "opt": adamw_init(params, tc.opt)}
+    state = {"params": params, "opt": adamw_init(params, tc.opt)}
+    if tc.compress_pod_grads:
+        state["ef"] = ef_init(params)
+    return state
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds (B, S) int tensors on the parameters' device, and metrics are
     0-d tensors {"loss", "grad_norm", "lr"}."""
-    _check(tc)
 
     def value_and_grad(params, batch):
         """(loss, {path: gradient}) of one (micro)batch; a leaf the loss
@@ -80,6 +80,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig):
 
     def train_step(state, batch):
         loss, grads = compute_grads(state["params"], batch)
+        if tc.compress_pod_grads:
+            grads, state["ef"] = compress_grads(grads, state["ef"])
         params, opt, stats = adamw_update(tc.opt, state["params"], grads,
                                           state["opt"])
         state["params"], state["opt"] = params, opt

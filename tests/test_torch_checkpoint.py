@@ -282,6 +282,43 @@ def test_resume_bitwise_identical(tmp_path, arch):
     assert int(b[("opt", "step")]) == 6
 
 
+def test_resume_with_error_feedback_bitwise_identical(tmp_path):
+    """A state with gradient compression's ``"ef"`` residuals: 6 steps
+    against 3 + save + load + 3 bit for bit (parameters, moments,
+    residuals, step, losses), and the checkpoint at 3 in the reference's
+    format: its ``load`` reads every leaf, the residuals among them, with
+    the port's bytes."""
+    cfg = configs.get("qwen2_7b", smoke=True).replace(dtype=torch.float32)
+    tc = TrainConfig(opt=OptConfig(warmup_steps=1, total_steps=6),
+                     compress_pod_grads=True)
+    lc = LoaderConfig(global_batch=2, seq_len=16, vocab=cfg.vocab, seed=3)
+
+    def fresh():
+        return make_train_state(cfg, tc, torch.Generator().manual_seed(0),
+                                "cpu")
+
+    full, full_losses = _steps(cfg, tc, lc, fresh(), 0, 6)
+    half, _ = _steps(cfg, tc, lc, fresh(), 0, 3)
+    assert any(t.any() for _, t in tree_paths(half["ef"]))
+    path = save(str(tmp_path), 3, {"state": half,
+                                   "loader": {"next_step": 3}})
+    _, ref = JT.load(path)
+    have = dict(ckpt_mod._flatten(jax.device_get(ref)))
+    for name, t in ckpt_mod._flatten(half):
+        assert np.asarray(have["state/" + name]).tobytes() == \
+            t.numpy().tobytes(), name
+    assert any(name.startswith("state/ef/") for name in have)
+    del half
+    step, payload = load(path, "cpu")
+    resumed, resumed_losses = _steps(cfg, tc, lc, payload["state"], step, 3)
+    assert resumed_losses == full_losses[3:]
+    a, b = dict(tree_paths(full)), dict(tree_paths(resumed))
+    assert sorted(a) == sorted(b)
+    assert any(p[0] == "ef" for p in a)
+    for p in a:
+        assert torch.equal(a[p], b[p]), p
+
+
 def test_launcher_resume_writes_the_uninterrupted_checkpoint(tmp_path,
                                                              capsys):
     """``train_main`` with ``--ckpt-dir``: the uninterrupted 6-step run,

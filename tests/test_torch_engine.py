@@ -315,15 +315,16 @@ BAD_FLAG_COMBOS = [
     ["--prefill-budget", "16"],                 # budget without the scheduler
     ["--fault-seed", "3"],                      # seed without a plan
     ["--fault-plan", "/nonexistent/plan.json"],  # unreadable plan
+    ["--tp", "2", "--no-paged-attention"],      # TP needs the paged plane
 ]
 
 
 @pytest.mark.parametrize("extra", BAD_FLAG_COMBOS,
                          ids=[" ".join(c) for c in BAD_FLAG_COMBOS])
 def test_launch_rejects_bad_flag_combos(extra):
-    """``tests/test_faults.py``'s combinations bar ``--tp`` (not ported):
-    validation runs before any device or model is touched, so a bad combo
-    exits 2 at once, here without ``--device cpu`` too."""
+    """``tests/test_faults.py``'s combinations, every one: validation runs
+    before any device or model is touched, so a bad combo exits 2 at
+    once, here without ``--device cpu`` too."""
     argv = ["--arch", "qwen2_7b", "--smoke", "--requests", "2",
             "--slots", "1", "--max-seq", "32", "--cache-kb", "64",
             "--max-new", "2", "--policy", "lerc"] + extra

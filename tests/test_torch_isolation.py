@@ -51,6 +51,8 @@ def test_importing_port_loads_no_jax_or_reference():
         "import sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.launch.train, repro_torch.train\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.ranks, repro_torch.train.compression\n"
         "import repro_torch.data, repro_torch.kernels.build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

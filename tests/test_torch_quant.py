@@ -31,6 +31,7 @@ from repro.models import init_decode_cache  # noqa: E402
 from repro.serve.kv_pool import \
     quant_chain_block_nbytes as jax_quant_nbytes  # noqa: E402
 from repro.train import compression  # noqa: E402
+from repro_torch.train import compression as port_compression  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch import quant as pq  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
@@ -65,7 +66,7 @@ REF = SimpleNamespace(
     f32=lambda a: np.asarray(a, np.float32),
     deq_f32=lambda q, s: rq.dequantize_rows(q, s, dtype=jnp.float32),
     qdtype=lambda spec: jnp.dtype(spec.dtype), f32dtype=jnp.float32,
-    bf16=jnp.bfloat16)
+    bf16=jnp.bfloat16, compression=compression)
 PORT = SimpleNamespace(
     name="port", q=pq, array=_port_array,
     f32=lambda a: a.to(torch.float32).numpy(),
@@ -73,7 +74,7 @@ PORT = SimpleNamespace(
         q, s if isinstance(s, torch.Tensor) else torch.from_numpy(s),
         dtype=torch.float32),
     qdtype=lambda spec: spec.dtype, f32dtype=torch.float32,
-    bf16=torch.bfloat16)
+    bf16=torch.bfloat16, compression=port_compression)
 PKGS = [REF, PORT]
 pkg_param = pytest.mark.parametrize("pkg", PKGS, ids=lambda p: p.name)
 spec_param = pytest.mark.parametrize("spec_name", SPEC_NAMES)
@@ -220,15 +221,13 @@ def test_compression_ratio_prices_scales_and_source_dtype(pkg):
     assert q_mod.compression_ratio(64, np.float32, None) == 1.0
     assert q_mod.compression_ratio(64, pkg.f32dtype) == \
         q_mod.compression_ratio(64, np.float32)
-    if pkg is REF:
-        # train reports through the same formula (train/compression.py is
-        # not ported yet: ROADMAP item 12)
-        assert compression.compression_ratio(jnp.float32) == \
-            pytest.approx(4.0)
-        assert compression.compression_ratio(jnp.float32, numel=64) == \
-            pytest.approx(q_mod.compression_ratio(64, np.float32))
-        assert compression.compression_ratio(jnp.bfloat16) == \
-            pytest.approx(2.0)
+    # train reports through the same formula
+    assert pkg.compression.compression_ratio(pkg.f32dtype) == \
+        pytest.approx(4.0)
+    assert pkg.compression.compression_ratio(pkg.f32dtype, numel=64) == \
+        pytest.approx(q_mod.compression_ratio(64, np.float32))
+    assert pkg.compression.compression_ratio(pkg.bf16) == \
+        pytest.approx(2.0)
 
 
 @pkg_param

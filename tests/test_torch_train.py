@@ -119,10 +119,173 @@ def test_grad_accumulation_equivalent():
                                atol=1e-5)
 
 
+def _seeded_grads(seed=0):
+    """Gradients of several scales and shapes, one all zero."""
+    rng = np.random.default_rng(seed)
+    return {"a": {"w": rng.standard_normal((64, 48)).astype(np.float32)
+                  * 0.03,
+                  "b": rng.standard_normal((48,)).astype(np.float32)},
+            "c": rng.standard_normal((5, 7, 9)).astype(np.float32) * 1e-4,
+            "z": np.zeros((4, 4), np.float32)}
+
+
+def _int8_agree(got_q, got_s, want_q, want_s, x):
+    """The port's per-tensor int8 (a true division, as numpy's) against
+    the reference's: scales within ``rtol=2e-7`` (XLA lowers the divide
+    to a reciprocal multiply), bytes equal except where the reference's
+    quotient lands on the other side of a rounding tie, one step away."""
+    got_q, want_q = np.asarray(got_q), np.asarray(want_q)
+    np.testing.assert_allclose(float(got_s), float(want_s), rtol=2e-7)
+    scale = np.maximum(np.max(np.abs(x)), np.float32(1e-12)) \
+        / np.float32(127.0)
+    np.testing.assert_array_equal(
+        got_q, np.clip(np.round(x / scale), -127, 127).astype(np.int8))
+    off = got_q != want_q
+    assert np.all(np.abs(got_q.astype(int) - want_q.astype(int)) <= 1)
+    frac = np.abs(x / scale) % 1.0
+    assert np.all(np.abs(frac[off] - 0.5) < 1e-5), frac[off]
+    return off, scale
+
+
 def test_compression_raises():
+    """(The name is the test's since the port refused compression.) The
+    port's ``compress_grads``, ``ef_init`` and ``compression_ratio``
+    against the reference's on seeded gradients over three rounds of
+    error feedback, each round of both packages fed the port's residual:
+    the int8 bytes and scales agree (``_int8_agree``), so the wire and
+    the new residual agree to the scale's rounding, and one quantizer
+    step where a tie parted the bytes; the ratios are equal. Then three
+    ``build_train_step`` steps with ``compress_pod_grads`` in both
+    packages under ``test_three_train_steps_match_reference``'s bars."""
+    from repro.train import compression as JC
+    from repro_torch.train import compression as TC
+
+    g_np = _seeded_grads()
+    jg = jax.tree.map(jnp.asarray, g_np)
+    tg = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else
+              {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+          for k, v in g_np.items()}
+    tef = TC.ef_init(tg)
+    want_ef = _leaves(jax.device_get(JC.ef_init(jg)))
+    for path, t in _leaves(tef).items():
+        assert t.dtype == torch.float32 and not t.any()
+        assert tuple(t.shape) == want_ef[path].shape
+    for _ in range(3):
+        parted = {}
+        for path, t in _leaves(tef).items():
+            x = (_leaves(tg)[path] + t).numpy()
+            tq, ts = TC._quantize_int8(torch.from_numpy(x))
+            jq, js = JC._quantize_int8(jnp.asarray(x))
+            parted[path] = _int8_agree(tq.numpy(), ts, jq, js, x)
+        jw, jef = JC.compress_grads(jg, unflatten(
+            {p: jnp.asarray(t.numpy()) for p, t in _leaves(tef).items()}))
+        tw, tef = TC.compress_grads(tg, tef)
+        for tree_t, tree_j in ((tw, jw), (tef, jef)):
+            want = _leaves(jax.device_get(tree_j))
+            for path, t in _leaves(tree_t).items():
+                off, scale = parted[path]
+                got, ref = t.numpy(), np.asarray(want[path])
+                np.testing.assert_allclose(got[~off], ref[~off],
+                                           rtol=1e-6, atol=1e-12)
+                assert np.all(np.abs(got[off] - ref[off])
+                              <= scale * 1.0001)
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        for numel in (None, 64, 1 << 20):
+            assert TC.compression_ratio(dtype, numel) == \
+                JC.compression_ratio(jdt, numel)
+
+    jcfg, np_params = _np_params("qwen2_7b")
+    tcfg = configs.get("qwen2_7b", smoke=True).replace(dtype=torch.float32)
+    oc = dict(lr=3e-4, warmup_steps=1, total_steps=3, eps=1e-3)
+    lc = dict(global_batch=2, seq_len=24, vocab=jcfg.vocab, seed=1)
+    jloader, tloader = JTrainLoader(JLoaderConfig(**lc)), TrainLoader(
+        LoaderConfig(**lc))
+    jtc = JT.TrainConfig(opt=JT.OptConfig(**oc), compress_pod_grads=True)
+    jstep = jax.jit(JT.build_train_step(jcfg, jtc, local_context()))
+    jstate = {"params": jax.tree.map(jnp.asarray, np_params)}
+    jstate["opt"] = JT.adamw_init(jstate["params"])
+    jstate["ef"] = JT.compression.ef_init(jstate["params"])
+    tc = TrainConfig(opt=OptConfig(**oc), compress_pod_grads=True)
+    tstep = build_train_step(tcfg, tc)
+    tparams = params_from_numpy(np_params)
+    tstate = {"params": tparams, "opt": adamw_init(tparams),
+              "ef": TC.ef_init(tparams)}
+    for step in range(3):
+        jstate, jm = jstep(jstate, jloader.build_batch(step))
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
+                                    for k, v in tloader.build_batch(
+                                        step).items()})
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-4)
+        assert float(tm["grad_norm"]) == pytest.approx(
+            float(jm["grad_norm"]), rel=1e-3)
+    want = _leaves(jax.device_get(jstate["params"]))
+    for path, t in _leaves(tstate["params"]).items():
+        np.testing.assert_allclose(t.numpy(), np.asarray(want[path]),
+                                   atol=1e-4, rtol=0, err_msg=str(path))
+    assert sorted(tstate) == sorted(jstate) == ["ef", "opt", "params"]
+
+
+def test_make_train_state_adds_error_feedback():
+    """``compress_pod_grads`` adds zero fp32 residuals under ``"ef"``, one
+    per parameter, as the reference's ``make_train_state`` does."""
     cfg = configs.get("qwen2_7b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        build_train_step(cfg, TrainConfig(compress_pod_grads=True))
+    state = make_train_state(cfg, TrainConfig(compress_pod_grads=True),
+                             torch.Generator().manual_seed(0), "cpu")
+    jstate = JT.make_train_state(
+        jax_configs.get("qwen2_7b", smoke=True),
+        JT.TrainConfig(compress_pod_grads=True), jax.random.key(0))
+    want = _leaves(jax.device_get(jstate["ef"]))
+    got = _leaves(state["ef"])
+    assert sorted(got) == sorted(want)
+    for path, t in got.items():
+        assert t.dtype == torch.float32 and not t.any()
+        assert tuple(t.shape) == want[path].shape
+    assert "ef" not in make_train_state(cfg, TrainConfig(),
+                                        torch.Generator().manual_seed(0),
+                                        "cpu")
+
+
+def test_compression_error_feedback_unbiased():
+    """``tests/test_train.py:66``: with error feedback the cumulative
+    transmitted gradient converges to the cumulative true gradient, in
+    both packages, by the same amount."""
+    from repro.train import compression as JC
+    from repro_torch.train import compression as TC
+
+    g_np = np.random.default_rng(0).normal(size=512).astype(np.float32)
+    rels = []
+    for C, g, zeros, norm in (
+            (JC, {"w": jnp.asarray(g_np)}, jnp.zeros(512), jnp.linalg.norm),
+            (TC, {"w": torch.from_numpy(g_np)}, torch.zeros(512),
+             torch.linalg.norm)):
+        ef = C.ef_init(g)
+        sent = zeros
+        for _ in range(50):
+            wire, ef = C.compress_grads(g, ef)
+            sent = sent + wire["w"]
+        total_true = g["w"] * 50
+        rels.append(float(norm(sent - total_true) / norm(total_true)))
+    assert rels[1] < 0.01, rels
+    assert rels[1] == pytest.approx(rels[0], rel=1e-3)
+
+
+def test_compression_single_step_is_quantized():
+    """``tests/test_train.py:83``: one round trip lands on the int8 grid
+    (at most 255 distinct values) and wire + residual is the gradient."""
+    from repro.train import compression as JC
+    from repro_torch.train import compression as TC
+
+    g = {"w": torch.linspace(-1, 1, 256)}
+    wire, ef = TC.compress_grads(g, TC.ef_init(g))
+    assert len(np.unique(wire["w"].numpy())) <= 255
+    np.testing.assert_allclose((wire["w"] + ef["w"]).numpy(),
+                               g["w"].numpy(), atol=1e-6)
+    jwire, _ = JC.compress_grads({"w": jnp.linspace(-1, 1, 256)},
+                                 JC.ef_init({"w": jnp.zeros(256)}))
+    np.testing.assert_allclose(wire["w"].numpy(), np.asarray(jwire["w"]),
+                               atol=1e-6)
 
 
 # ----------------------------------------------- against the reference
