@@ -189,7 +189,30 @@ exits non-zero:
              cross K2 launches a step), one step's K2 outputs against the
              plain version's, a profiled window; then the smoke config in
              f32, the card against the CPU (identical tokens).
-13. the kernels line (K1's, K2's and K3's launches on each of their
+    mesh_train — the mesh path (DTensor, ``launch.mesh``) on a (1, 1)
+             mesh over a one-rank NCCL group: moonshot-v1-16b-a3b at
+             full width cut to 4 M layers (bf16, seeded random weights,
+             batch 2 x 4096 from ``TrainLoader``): one meshless step
+             (untimed: K3's launches a step), then 3 AdamW steps on the
+             mesh, every MoE layer through the expert-parallel
+             ``_moe_ep_device`` at ep=1 (capacity 960 of 8192 tokens), K3
+             under ``local_map``: finite losses, K3's launches three
+             times the meshless step's, layer 0's EP call equal bit for
+             bit to the same call with no group; ms a step, peak memory
+             and the assignments capacity dropped in each layer. Then
+             qwen2-7b at full width cut to 4 layers, 3 steps meshless and
+             3 on the mesh from one state (losses within
+             ``TRAIN_LOSS_RTOL``, equal K3 launches), and 16 prompt and
+             16 greedy tokens of 8 rows through ``decode_step`` with and
+             without the mesh (identical tokens, equal K2 launches);
+             then the dry-run cell (moonshot's train_4k on the 512-rank
+             multi-pod mesh, a fake group) started in a subprocess at the
+             run's beginning: its per-rank bytes and ``hbm_frac``. The
+             kernel phase also holds K3 at a query offset (the
+             context-parallel rows of one model rank) to its plain
+             version and times it at one rank of qwen2-7b's prefill_32k
+             beside SDPA with the same boolean mask and the bound.
+13. the walls line (each phase's seconds), the kernels line (K1's, K2's and K3's launches on each of their
              paths under ``launches_by_path``, K1's on the TP path
              among them), the card line, and the
              result line.
@@ -206,6 +229,7 @@ It imports only the port, torch and numpy, and needs no network.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -237,7 +261,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_design  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_design  # noqa: E402
 from repro_torch.faults import BusFault, FaultPlan  # noqa: E402
+from repro_torch.launch import ranks as launch_ranks  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh_context  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_scan_mod  # noqa: E402
 # the modules, which the package's functions of the same names shadow
@@ -262,7 +288,7 @@ from repro_torch.models import (decode_step, encdec_prefill_cache,  # noqa
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import recurrent as model_recurrent  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_map, unflatten  # noqa: E402
 from repro_torch.serve import (LegacyServeEngine,  # noqa: E402
                                PrefixStore, ServeEngine, ShardedFrontend,
                                TieredKVStore, TracedRequest, play_trace)
@@ -271,7 +297,7 @@ from repro_torch.sim import poisson_arrivals  # noqa: E402
 from repro_torch.train import (AsyncCheckpointer, OptConfig,  # noqa: E402
                                TrainConfig, adamw_init, build_train_step,
                                compression_ratio, ef_init, latest, load,
-                               make_train_state)
+                               make_train_state, shard_train_state)
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -380,6 +406,15 @@ FLASH_MASK_CASES = [
     (2, 300, 300, 8, 1, 256, True, None, None, 100),
     (1, 200, 200, 4, 2, 64, True, 32, None, 150),
 ]
+# K3 with a query offset (the mesh path's context-parallel fallback: one
+# model rank's rows [q_offset, q_offset + Sq) against every key), (B, Sq,
+# Skv, H, KV, D, window, softcap, prefix_len, q_offset), causal: a ragged
+# row tile, a window with a softcap, and a prefix, D=64 to 256
+FLASH_OFFSET_CASES = [
+    (2, 64, 200, 4, 2, 64, None, None, 0, 136),
+    (1, 100, 300, 4, 1, 128, 64, 30.0, 0, 150),
+    (1, 96, 256, 8, 1, 256, None, None, 100, 160),
+]
 # K3 at the training path's shapes: recurrentgemma-9b's L layer and
 # gemma2-27b's G layer, S=4096 (the repo's train_4k length); whisper-base's
 # encoder (bidirectional over 1500 frames) and cross-attention (448 decoder
@@ -397,6 +432,13 @@ FLASH_SHAPES = {
                           softcap=None, causal=False),
     "paligemma_prefix": dict(B=4, S=512, H=8, KV=1, D=256, window=None,
                              softcap=None, prefix_len=256),
+    # one model rank (the last of 16) of qwen2-7b's prefill_32k under the
+    # mesh path's context-parallel fallback (28 heads do not divide 16):
+    # its 2048 query rows at offset 30720 against all 32768 keys, causal,
+    # at batch 1 (the cell's rank holds 2); bf16 only
+    "qwen2_cp_rank": dict(B=1, S=2048, Skv=32768, H=28, KV=4, D=128,
+                          window=None, softcap=None, q_offset=30720,
+                          dtypes=(torch.bfloat16,)),
 }
 # gradients through K3's Function against the plain backward from the
 # plain forward: the two differ only by the forward's out and lse, so in
@@ -760,10 +802,10 @@ def decode_kernel_phase(dev) -> dict:
             "S4096": timings[4096], **model_shapes}
 
 
-def visible(Sq, Skv, causal=True, window=None, prefix_len=0):
+def visible(Sq, Skv, causal=True, window=None, prefix_len=0, q_offset=None):
     """K3's (Sq, Skv) boolean mask, numpy: causal, window, then every key
-    below ``prefix_len``."""
-    i = np.arange(Sq)[:, None]
+    below ``prefix_len``; query row i at position ``q_offset + i``."""
+    i = (q_offset or 0) + np.arange(Sq)[:, None]
     j = np.arange(Skv)[None, :]
     m = j <= i if causal else np.ones((Sq, Skv), bool)
     if window is not None:
@@ -781,8 +823,8 @@ def flash_bound(q, k, kw):
     over the peak for the dtype."""
     B, S, H, D = q.shape
     pairs = int(visible(S, k.shape[1], kw.get("causal", True),
-                        kw.get("window"), kw.get("prefix_len", 0)).sum()
-                ) * B * H
+                        kw.get("window"), kw.get("prefix_len", 0),
+                        kw.get("q_offset")).sum()) * B * H
     isz = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * isz + B * H * S * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -827,7 +869,8 @@ def sdpa_flash_call(q, k, v, kw):
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = torch.from_numpy(visible(q.shape[1], k.shape[1],
                                     kw.get("causal", True), kw.get("window"),
-                                    kw.get("prefix_len", 0))).to(q.device)
+                                    kw.get("prefix_len", 0),
+                                    kw.get("q_offset"))).to(q.device)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
@@ -849,6 +892,11 @@ def flash_kernel_phase(dev) -> dict:
                     prefix_len=prefix), Skv)
               for i, (B, Sq, Skv, H, KV, D, causal, window, softcap, prefix)
               in enumerate(FLASH_MASK_CASES)]
+    cases += [(f"offset_case{i}", (B, Sq, H, KV, D),
+               dict(causal=True, window=window, softcap=softcap,
+                    prefix_len=prefix, q_offset=off), Skv)
+              for i, (B, Sq, Skv, H, KV, D, window, softcap, prefix, off)
+              in enumerate(FLASH_OFFSET_CASES)]
     for i, (name, dims, kw, Skv) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(*dims, dtype, dev, seed=i, Skv=Skv)
@@ -872,8 +920,10 @@ def flash_kernel_phase(dev) -> dict:
         kw = dict(causal=shp.get("causal", True), window=shp["window"],
                   softcap=shp["softcap"], prefix_len=shp.get("prefix_len",
                                                              0))
+        if "q_offset" in shp:
+            kw["q_offset"] = shp["q_offset"]
         dims = [shp[x] for x in ("B", "S", "H", "KV", "D")]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in shp.get("dtypes", (torch.float32, torch.bfloat16)):
             q, k, v = flash_inputs(*dims, dtype, dev, seed=1,
                                    Skv=shp.get("Skv"))
             got, glse = flash_attention_forward(q, k, v, **kw)
@@ -898,7 +948,8 @@ def flash_kernel_phase(dev) -> dict:
                                         flush)
                                 if shp["softcap"] is None else None),
                  "bound_ms": bound_ms, "bound_by": bound_by}
-            emit("kernel", name="flash_attention", dtype=tag, shape=shp,
+            emit("kernel", name="flash_attention", dtype=tag,
+                 shape={k: v for k, v in shp.items() if k != "dtypes"},
                  visible_pairs=pairs, max_abs_err=err, lse_max_abs_err=
                  lse_err, atol=atol, grad_rel_err=grads,
                  grad_rtol=GRAD_RTOL[dtype], **t)
@@ -3879,6 +3930,266 @@ def encdec_parity(dev) -> None:
          rtol=LOGITS_RTOL, kernel_launches=counts)
 
 
+# --------------------------------------------------------------- mesh
+
+# the dry-run cell the card machine's torch builds: moonshot-v1-16b-a3b's
+# train_4k on the 512-rank multi-pod mesh, one microbatch
+DRYRUN_CELL = ["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k",
+               "--multi-pod", "--microbatches", "1"]
+DRYRUN_DEADLINE = 600
+
+
+def start_dryrun(out_dir: Path) -> tuple:
+    """The dry-run cell in a subprocess of its own (CPU only: a fake
+    process group, fake tensors), started now and read by
+    ``mesh_train_phase``."""
+    out = out_dir / "dryrun_moonshot_train_4k.json"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL,
+         "--json", str(out)], env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    # whatever ends the run ends the subprocess too
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def finish_dryrun(started) -> None:
+    proc, out = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_DEADLINE)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, stderr[-3000:]
+    (r,) = json.loads(out.read_text())
+    assert r["ok"] and r["devices"] == 512 and r["mesh"] == "2x16x16", r
+    mem = r["memory"]
+    assert 0 < mem["argument_bytes"] <= mem["peak_bytes"]
+    assert mem["temp_bytes"] is None and r["cost"]["bytes_accessed"] is None
+    emit("mesh_dryrun", command="python -m repro_torch.launch.dryrun "
+         + " ".join(DRYRUN_CELL), per_rank=mem, hbm_frac=r["hbm_frac"],
+         flops=r["cost"]["flops"], collectives=r["collectives"],
+         run_s=r["compile_s"], line=stdout.strip().splitlines()[0])
+
+
+def mesh_batch(mc, batch) -> dict:
+    return {k: mc.distribute(v, mc.placements(mc.batch_pspec(
+        tuple(v.shape)))) for k, v in batch.items()}
+
+
+def mesh_train_steps(cfg, mc, state, batches, tc) -> tuple:
+    """AdamW steps of ``state`` (DTensors on ``mc``'s mesh, or plain
+    without ``mc``) on ``batches``, each timed; every launch counted.
+    Returns (steps, launches, peak bytes)."""
+    step_fn = build_train_step(cfg, tc, mc)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def run():
+        nonlocal state
+        for b in batches:
+            if model_moe.DROP_LOG is not None:
+                model_moe.DROP_LOG = []
+            t = time.time()
+            state, m = step_fn(state, mesh_batch(mc, b) if mc else b)
+            loss = m["loss"]
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                         else loss)
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "ms": (time.time() - t) * 1e3})
+            if model_moe.DROP_LOG is not None:
+                # the forward's M layers in order (the backward's
+                # recomputation runs them again, in reverse)
+                steps[-1]["dropped_by_layer"] = [
+                    int(n) for n in model_moe.DROP_LOG[:cfg.n_layers]]
+    _, launches = counted(run)
+    for st in steps:
+        assert math.isfinite(st["loss"]), steps
+    return steps, launches, torch.cuda.max_memory_allocated()
+
+
+def train_batches(cfg, dev, n) -> list:
+    loader = TrainLoader(LoaderConfig(global_batch=2, seq_len=4096,
+                                      vocab=cfg.vocab, seed=0))
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in loader.build_batch(i).items()} for i in range(n)]
+
+
+class FirstEPCall:
+    """Records the first ``_moe_ep_device`` call's inputs and output
+    (copies), calling through."""
+
+    def __init__(self):
+        self.call = None
+        self.orig = model_moe._moe_ep_device
+
+    def __call__(self, cfg, group, params, x_flat, dropped=None):
+        out = self.orig(cfg, group, params, x_flat, dropped)
+        if self.call is None:
+            self.call = ({k: v.detach().clone() for k, v in params.items()},
+                         x_flat.detach().clone(), out.detach().clone())
+        return out
+
+
+def mesh_moonshot(dev, mc) -> dict:
+    """moonshot-v1-16b-a3b at full width cut to 4 M layers: one meshless
+    step (K3's launches a step), then 3 steps on the (1, 1) mesh through
+    the EP MoE at ep=1, layer 0's EP call held bit for bit to the same
+    call with no group."""
+    cfg = configs.get("moonshot_v1_16b_a3b").replace(n_layers=4)
+    tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
+    t0 = time.time()
+    state = make_train_state(cfg, tc, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for _, t in tree_paths(state["params"]))
+    batches = train_batches(cfg, dev, 4)
+    init_s = time.time() - t0
+    _, one, _ = mesh_train_steps(cfg, None, state, batches[:1], tc)
+    # a layer's forward, and again its checkpoint's recomputation
+    assert one["flash_attention"] == 2 * cfg.n_layers, one
+    state = shard_train_state(cfg, state, mc)
+    rec = FirstEPCall()
+    model_moe.DROP_LOG = []
+    try:
+        with mock.patch.object(model_moe, "_moe_ep_device", rec):
+            steps, launches, peak = mesh_train_steps(cfg, mc, state,
+                                                     batches[1:], tc)
+    finally:
+        model_moe.DROP_LOG = None
+    assert launches["flash_attention"] == 3 * one["flash_attention"], (
+        launches, one)
+    params, x, out = rec.call
+    with torch.no_grad():
+        again = model_moe._moe_ep_device(cfg, None, params, x)
+    assert torch.equal(out, again), (out - again).abs().max()
+    T = x.shape[0]
+    emit("mesh_train", config="moonshot_v1_16b_a3b full width (d_model "
+         "2048, 16 heads, 64 experts top-6 + 2 shared, d_ff 1408, vocab "
+         "163840), 4 M layers, bf16, random weights (seed 0)",
+         mesh="(1, 1) data=1 model=1, one NCCL rank", params=n_params,
+         init_s=init_s, batch=2, seq_len=4096, steps=steps,
+         capacity=max(1, math.ceil(T * cfg.top_k * cfg.capacity_factor
+                                   / cfg.n_experts)),
+         tokens_a_step=T, meshless_step_launches=one,
+         kernel_launches=launches, max_memory_allocated=peak,
+         ep_layer0_bit_equal_to_groupless=True)
+    return {"meshless_step": one, "mesh_3_steps": launches}
+
+
+def mesh_qwen2(dev, mc) -> dict:
+    """qwen2-7b at full width cut to 4 layers: 3 steps meshless and 3 on
+    the (1, 1) mesh from one initial state (losses within
+    ``TRAIN_LOSS_RTOL``, K3 launches equal), then 16 prompt tokens and 16
+    greedy tokens of 8 rows through ``decode_step`` with and without the
+    mesh on the meshless run's weights (tokens and K2 launches equal)."""
+    cfg = configs.get("qwen2_7b").replace(n_layers=4)
+    tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
+    batches = train_batches(cfg, dev, 3)
+    init = make_train_state(cfg, tc, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    copy = tree_map(lambda t: t.clone(), init)
+    plain_steps, plain_k, plain_peak = mesh_train_steps(
+        cfg, None, init, batches, tc)
+    mesh_state = shard_train_state(cfg, copy, mc)
+    steps, launches, peak = mesh_train_steps(cfg, mc, mesh_state, batches,
+                                             tc)
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(steps, plain_steps))
+    assert rel <= TRAIN_LOSS_RTOL, (steps, plain_steps)
+    assert launches == plain_k, (launches, plain_k)
+    assert launches["flash_attention"] == 3 * 2 * cfg.n_layers, launches
+    del mesh_state, copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init["params"]
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (8, 16)).astype(np.int32)).to(dev)
+    runs = {}
+    for name, ctx in (("meshless", None), ("mesh", mc)):
+        (toks, ms), k = counted(lambda: mesh_greedy(cfg, params, dev,
+                                                    prompt, 16, ctx))
+        runs[name] = {"tokens": toks, "ms_a_step": ms, "launches": k}
+    assert runs["mesh"]["tokens"] == runs["meshless"]["tokens"], runs
+    assert runs["mesh"]["launches"] == runs["meshless"]["launches"]
+    # a K2 launch a layer a step: 16 prompt steps and 15 greedy (the
+    # last prompt step gives the first greedy token)
+    assert runs["mesh"]["launches"]["decode_attention"] == \
+        cfg.n_layers * (16 + 16 - 1), runs
+    emit("mesh_train", config="qwen2_7b full width (d_model 3584, 28 "
+         "heads, GQA kv=4, d_ff 18944, vocab 152064), 4 layers, bf16, "
+         "random weights (seed 0)", mesh="(1, 1) data=1 model=1, one NCCL "
+         "rank", batch=2, seq_len=4096, steps_meshless=plain_steps,
+         steps_mesh=steps, max_rel_loss_diff=rel, rtol=TRAIN_LOSS_RTOL,
+         launches_meshless=plain_k, launches_mesh=launches,
+         max_memory_allocated_meshless=plain_peak,
+         max_memory_allocated_mesh=peak,
+         decode={n: {k: v for k, v in r.items() if k != "tokens"}
+                 for n, r in runs.items()},
+         decode_tokens_equal=True, decode_rows=8, decode_prompt=16,
+         decode_new=16)
+    return {"train_3_steps": launches,
+            "decode_32_steps": runs["mesh"]["launches"]}
+
+
+def mesh_greedy(cfg, params, dev, prompt, new, mc) -> tuple:
+    """``prompt`` (B, P) fed a token a step through ``decode_step`` at one
+    shared position, then ``new`` greedy tokens; with ``mc`` on its mesh
+    (params, cache and tokens DTensors, views of the same tensors).
+    Returns (the greedy tokens, ms a step of the greedy part)."""
+    B, P = prompt.shape
+    cache = init_decode_cache(cfg, B, P + new, device=dev)
+    if mc is not None:
+        params = tree_map(lambda t, s: mc.distribute(t, mc.param_sharding(
+            s)), params, model_spec(cfg))
+        flat = {}
+        for path, leaf in tree_paths(cache):
+            flat[path] = mc.distribute(leaf, mc.placements(
+                mc.cache_pspec(path, tuple(leaf.shape))))
+        cache = unflatten(flat)
+
+    def step(tok, pos):
+        if mc is not None:
+            tok = mc.distribute(tok, mc.placements(mc.batch_pspec(
+                tuple(tok.shape))))
+        logits, _ = decode_step(cfg, params, cache, tok, pos,
+                                mesh_ctx=mc)
+        last = logits[:, -1]
+        if mc is not None:
+            last = mc.gather_seq(last).full_tensor()
+        return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+
+    with torch.no_grad():
+        for p in range(P):
+            tok = step(prompt[:, p:p + 1], p)
+        out = [tok]
+        torch.cuda.synchronize()
+        t = time.time()
+        for i in range(new - 1):
+            out.append(step(out[-1], P + i))
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3 / max(new - 1, 1)
+    return torch.cat(out, 1).cpu().tolist(), ms
+
+
+def mesh_train_phase(dev, dryrun) -> dict:
+    """The mesh path on one card: a (1, 1) mesh (data=1, model=1) over a
+    one-rank NCCL group (``make_debug_mesh_context``), moonshot through
+    the EP MoE and qwen2 meshless beside mesh, then the dry-run cell
+    started at the run's beginning. Returns the launches by path."""
+    if not torch.distributed.is_initialized():
+        launch_ranks.init_local_group("cuda")
+    mc = make_debug_mesh_context((1, 1))
+    out = {"moonshot": mesh_moonshot(dev, mc)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qwen2"] = mesh_qwen2(dev, mc)
+    finish_dryrun(dryrun)
+    return out
+
+
 def kernel_entry(name, replaces, launches, kern) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3893,64 +4204,81 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda,
-         count=torch.cuda.device_count())
+         count=torch.cuda.device_count(),
+         total_memory=torch.cuda.get_device_properties(0).total_memory)
+    walls = {}
+
+    def timed(name, phase, *args):
+        t = time.time()
+        out = phase(*args)
+        walls[name] = round(time.time() - t, 3)
+        return out
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    dryrun = start_dryrun(out_dir)
     t0 = time.time()
     logs = build.build(KERNELS)
+    walls["build"] = round(time.time() - t0, 3)
     emit("build", seconds=time.time() - t0, kernels=KERNELS,
          ptxas=[ln.strip() for log in logs.values()
                 for ln in log.splitlines()
                 if "Function properties" in ln or "Used" in ln
                 or "spill" in ln])
-    k1 = kernel_phase(dev)
-    k2 = decode_kernel_phase(dev)
-    k3 = flash_kernel_phase(dev)
-    k5 = rglru_kernel_phase(dev)
-    k4 = rwkv_kernel_phase(dev)
+    k1 = timed("kernel", kernel_phase, dev)
+    k2 = timed("decode_kernel", decode_kernel_phase, dev)
+    k3 = timed("flash_kernel", flash_kernel_phase, dev)
+    k5 = timed("rglru_kernel", rglru_kernel_phase, dev)
+    k4 = timed("rwkv_kernel", rwkv_kernel_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    parity_phase(dev)
-    train_parity_phase(dev)
-    k1_launches, k1_runs, k1_tp = serve_phase(dev)
+    timed("parity", parity_phase, dev)
+    timed("train_parity", train_parity_phase, dev)
+    k1_launches, k1_runs, k1_tp = timed("serve", serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # the qwen2 weights go before gemma2's
-    k2_launches, k2_runs = gather_serve_phase(dev)
+    k2_launches, k2_runs = timed("gather_serve", gather_serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # gemma2's 54.5 GB go before the next
-    k2_recurrent = recurrent_decode_phase(dev)
+    k2_recurrent = timed("recurrent_decode", recurrent_decode_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    k1_moe = moe_serve_phase(dev)
+    k1_moe = timed("moe_serve", moe_serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # llama4's 35.3 GB go before qwen2's
-    k2_legacy = legacy_serve_phase(dev)
+    k2_legacy = timed("legacy_serve", legacy_serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    k1_vlm = vlm_serve_phase(dev)
+    k1_vlm = timed("vlm_serve", vlm_serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # paligemma's weights go before codeqwen's
-    k1_sharded = sharded_serve_phase(dev)
+    k1_sharded = timed("sharded_serve", sharded_serve_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train_phase(dev)
+    train_launches = timed("train", train_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # recurrentgemma's state goes before rwkv6's
-    k4_launches = rwkv_train_phase(dev)
+    k4_launches = timed("rwkv_train", rwkv_train_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()       # rwkv6's 32-layer state goes first
-    train_resume_phase(dev)
+    timed("train_resume", train_resume_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train_compressed_phase(dev)
+    timed("train_compressed", train_compressed_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    k3_vlm = vlm_train_phase(dev)
+    k3_vlm = timed("vlm_train", vlm_train_phase, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    whisper = encdec_phase(dev)
+    whisper = timed("encdec", encdec_phase, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = timed("mesh_train", mesh_train_phase, dev, dryrun)
     k1_entry = kernel_entry("paged_attention",
                             "src/repro/kernels/paged_attention.py:41",
                             k1_launches, k1)
@@ -3989,7 +4317,9 @@ def main() -> int:
                         "recurrentgemma_9b_decode_step": k2_recurrent,
                         "qwen2_7b_4_layers_legacy_serve": k2_legacy,
                         "whisper_base_decode_step":
-                            whisper["k2_by_attention"]})
+                            whisper["k2_by_attention"],
+                        "qwen2_7b_4_layers_mesh_decode_step":
+                            mesh["qwen2"]["decode_32_steps"]})
     k3_entry = kernel_entry("flash_attention",
                             "src/repro/kernels/flash_attention.py:35",
                             train_launches["flash_attention"], k3)
@@ -4004,7 +4334,12 @@ def main() -> int:
                         "recurrentgemma_9b_5_layers_train":
                             train_launches["flash_attention"],
                         "paligemma_3b_train_prefix": k3_vlm,
-                        "whisper_base_train": whisper["k3_by_mask"]})
+                        "whisper_base_train": whisper["k3_by_mask"],
+                        "moonshot_v1_16b_a3b_4_layers_mesh_train":
+                            mesh["moonshot"],
+                        "qwen2_7b_4_layers_mesh_train":
+                            mesh["qwen2"]["train_3_steps"]},
+                    qwen2_cp_rank=k3["qwen2_cp_rank"])
     k5_entry = kernel_entry("rglru_scan",
                             "src/repro/kernels/rglru_scan.py:28",
                             train_launches["rglru_scan"]
@@ -4030,6 +4365,8 @@ def main() -> int:
                     max_rel_err=k4["max_rel_err"],
                     chunked_ms=k4["chunked_ms"],
                     backward_plain_ms=k4["backward_two_level_ms"])
+    walls["total"] = round(time.time() - t_start, 3)
+    emit("walls", seconds=walls)
     print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k4_entry,
                                   k5_entry]}), flush=True)
     print(card, flush=True)

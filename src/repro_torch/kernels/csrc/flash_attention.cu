@@ -152,8 +152,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int S, int Skv, int H, int KV,
-                       int D, int causal, int window, int prefix, float scale,
-                       float softcap) {
+                       int D, int causal, int window, int prefix, int qoff,
+                       float scale, float softcap) {
   const int G = H / KV;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -174,7 +174,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the keys this block's rows can see
   int lo, hi;
-  key_range<true>(q0, kBQ, Skv, causal, window, prefix, lo, hi);
+  key_range<true>(qoff + q0, kBQ, Skv, causal, window, prefix, lo, hi);
 
   const int chunks = D * (int)sizeof(T) / 16;  // 16-byte pieces of a row
   constexpr int kPiece = 16 / sizeof(T);
@@ -256,7 +256,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = sr + 32 * i;
-      const int qpos = q0 + row;
+      const int qpos = qoff + q0 + row;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -346,7 +346,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int S, int Skv, int H, int KV, int D,
-                   int causal, int window, int prefix, float scale,
+                   int causal, int window, int prefix, int qoff, float scale,
                    float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -358,18 +358,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), S, Skv, H, KV, D, causal, window, prefix,
-      scale, softcap);
+      qoff, scale, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int S, int Skv, int H, int KV, int D,
-                     int causal, int window, int prefix, float scale,
-                     float softcap, cudaStream_t stream) {
+                     int causal, int window, int prefix, int qoff,
+                     float scale, float softcap, cudaStream_t stream) {
 #define FLASH_LAUNCH(NJ)                                                     \
   return launch<T, NJ>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,      \
-                       window, prefix, scale, softcap, stream)
+                       window, prefix, qoff, scale, softcap, stream)
   if (D <= 64) FLASH_LAUNCH(1);
   if (D <= 128) FLASH_LAUNCH(2);
   FLASH_LAUNCH(4);
@@ -540,8 +540,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out,
                    float* __restrict__ lse, int S, int Skv, int H, int KV,
-                   int D, int causal, int window, int prefix, float scale,
-                   float softcap) {
+                   int D, int causal, int window, int prefix, int qoff,
+                   float scale, float softcap) {
   constexpr int NB = DP / 64;       // 64-column blocks of a row
   constexpr int CH = DP / 8;        // 16-byte chunks of a row
   constexpr int TQ = kWQ * 128;     // bytes of one column block of Q
@@ -564,10 +564,11 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int qw = q0 + 64 * wg;          // the warpgroup's first row
+  const int aw = qoff + qw;             // ... as an absolute position
   // the keys the block's rows can see, and the warpgroup's own
   int lo, hi, wlo, whi;
-  key_range<PREFIX>(q0, kWQ, Skv, causal, window, prefix, lo, hi);
-  key_range<PREFIX>(qw, 64, Skv, causal, window, prefix, wlo, whi);
+  key_range<PREFIX>(qoff + q0, kWQ, Skv, causal, window, prefix, lo, hi);
+  key_range<PREFIX>(aw, 64, Skv, causal, window, prefix, wlo, whi);
 
   // byte offset of row r, chunk c in a tile of `rows` rows
   auto swz = [](int r, int c, int rows) {
@@ -641,8 +642,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // a stage every row of the warpgroup sees whole needs no mask: one
       // inside every row's band, or inside the prefix
       bool whole = k0 + kWK <= whi &&
-                   (!causal || k0 + kWK - 1 <= qw) &&
-                   (window < 0 || k0 > qw + 63 - window);
+                   (!causal || k0 + kWK - 1 <= aw) &&
+                   (window < 0 || k0 > aw + 63 - window);
       if constexpr (PREFIX) whole = whole || k0 + kWK <= min(whi, prefix);
 #pragma unroll
       for (int n = 0; n < kWK / 8; ++n)
@@ -653,7 +654,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             x = attn::softcap_fast(x, softcap, two_over_cap);
           if (!whole) {
             const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
-            const int qpos = rq0 + 8 * (e >> 1);
+            const int qpos = qoff + rq0 + 8 * (e >> 1);
             bool ok;
             if constexpr (PREFIX)
               ok = visible(qpos, kpos, hi, causal, window, prefix);
@@ -721,7 +722,8 @@ template <int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int S, int Skv, int H,
                          int KV, int D, int causal, int window, int prefix,
-                         float scale, float softcap, cudaStream_t stream) {
+                         int qoff, float scale, float softcap,
+                         cudaStream_t stream) {
   const int smem = 1024 + (DP / 64) * (kWQ + 4 * kWK) * 128;
   auto kernel = prefix > 0 ? flash_wgmma_kernel<DP, true>
                            : flash_wgmma_kernel<DP, false>;
@@ -733,48 +735,53 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), S, Skv, H, KV, D, causal, window, prefix,
-      scale, softcap);
+      qoff, scale, softcap);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            void* out, void* lse, int B, int S, int Skv, int H,
                            int KV, int D, int causal, int window, int prefix,
-                           float scale, float softcap, cudaStream_t stream) {
+                           int qoff, float scale, float softcap,
+                           cudaStream_t stream) {
   if (D <= 64)
     return launch_wgmma<64>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
-                            window, prefix, scale, softcap, stream);
+                            window, prefix, qoff, scale, softcap, stream);
   if (D <= 128)
     return launch_wgmma<128>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
-                             window, prefix, scale, softcap, stream);
+                             window, prefix, qoff, scale, softcap, stream);
   return launch_wgmma<256>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
-                           window, prefix, scale, softcap, stream);
+                           window, prefix, qoff, scale, softcap, stream);
 }
 
 }  // namespace
 
 // q, out: (B, S, H, D); k, v: (B, Skv, KV, D); lse: (B, H, S) fp32. All
 // contiguous and 16-byte aligned, D a multiple of 8 up to 256. causal 0/1
-// (causal needs Skv == S); window < 0 turns the window off, prefix <= 0
-// the prefix, softcap <= 0 the softcap. dtype 0 = float32 (SIMT kernel),
+// (causal needs qoff + S <= Skv; the wrapper asks Skv == S of a call
+// without an offset); window < 0 turns the
+// window off, prefix <= 0 the prefix, softcap <= 0 the softcap. qoff: the
+// absolute position of query row 0 (one rank's slice of the queries under
+// context parallelism), which every mask and key range reads. dtype 0 = float32 (SIMT kernel),
 // 1 = bfloat16 (wgmma kernel). Launches on `stream` and returns the CUDA
 // error code (0 on success); does not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int S, int Skv, int H, int KV,
                                       int D, int causal, int window,
-                                      int prefix, float scale, float softcap,
-                                      int dtype, void* stream) {
+                                      int prefix, int qoff, float scale,
+                                      float softcap, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
-      H > 65535 || B > 65535 || Skv < 0 || (causal && Skv != S))
+      H > 65535 || B > 65535 || Skv < 0 || qoff < 0 ||
+      (causal && qoff + S > Skv))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
-                           window, prefix, scale, softcap, st);
+                           window, prefix, qoff, scale, softcap, st);
   if (dtype == 1)
     return dispatch_wgmma(q, k, v, out, lse, B, S, Skv, H, KV, D, causal,
-                          window, prefix, scale, softcap, st);
+                          window, prefix, qoff, scale, softcap, st);
   return cudaErrorInvalidValue;
 }

@@ -8,7 +8,10 @@ Query token ``i`` of head ``h`` attends the keys ``j < Skv`` of KV head
 ``h // G`` with ``j <= i`` (causal) and ``j > i - window`` (with a
 window), or with ``j < prefix_len`` whatever the band says (the
 reference's prefix-LM rule, ``src/repro/models/layers.py:370-379``).
-Causal attention needs Sq == Skv, as the reference's kernel does; the
+Causal attention needs Sq == Skv, as the reference's kernel does, unless
+a ``q_offset`` (0 included) places the queries at rows ``[q_offset,
+q_offset + Sq)`` of the Skv positions (one model rank's query slice under the mesh path's
+context parallelism: every mask then reads the query's absolute row); the
 non-causal kernel masks the keys past Skv, as the Pallas kernel masks
 those past ``kv_len``. Scores are taken on ``q * scale`` in fp32 and
 softcapped (``c*tanh(s/c)``) before the mask; the softmax is online in
@@ -51,8 +54,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _key_range(q0: int, q1: int, Skv: int, causal: bool,
                window: Optional[int], prefix_len: int) -> Tuple[int, int]:
-    """The keys [lo, hi) that query rows [q0, q1) can see: the band, and
-    with a prefix every key below ``prefix_len`` as well."""
+    """The keys [lo, hi) that query rows [q0, q1) (absolute rows: the
+    callers add ``q_offset``) can see: the band, and with a prefix every
+    key below ``prefix_len`` as well."""
     lo = max(0, q0 - window + 1) if window is not None else 0
     hi = min(Skv, q1) if causal else Skv
     if prefix_len:
@@ -73,7 +77,8 @@ def _mask(q0, q1, k0, k1, causal, window, prefix_len, device):
     return m
 
 
-def _check_shapes(q, k, v, causal: bool, prefix_len: int) -> None:
+def _check_shapes(q, k, v, causal: bool, prefix_len: int,
+                  q_offset: Optional[int] = None) -> None:
     """What neither route takes raises here."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"q (B,Sq,H,D) and k, v (B,Skv,KV,D) expected, got "
@@ -83,10 +88,15 @@ def _check_shapes(q, k, v, causal: bool, prefix_len: int) -> None:
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if causal and k.shape[1] != Sq:
+    if q_offset is not None and q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if causal and q_offset is None and k.shape[1] != Sq:
         raise ValueError(f"causal attention needs Sq == Skv (the "
                          f"reference's kernel takes no offset): q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if causal and (q_offset or 0) + Sq > k.shape[1]:
+        raise ValueError(f"causal query rows [{q_offset}, {q_offset + Sq}) "
+                         f"run past the {k.shape[1]} keys")
     if prefix_len < 0:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
@@ -96,14 +106,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           prefix_len: int = 0,
+                          q_offset: Optional[int] = None,
                           block_q: int = 128, block_k: int = 128
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D), H % KV == 0 (Sq == Skv
-    when causal). Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq)
-    fp32), where lse is the log-sum-exp of each row's visible scores
-    (``EMPTY_LSE`` for a row that sees none). Differentiable by
-    autograd."""
-    _check_shapes(q, k, v, causal, prefix_len)
+    when causal, or the queries at rows ``[q_offset, q_offset + Sq)``).
+    Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) fp32), where
+    lse is the log-sum-exp of each row's visible scores (``EMPTY_LSE``
+    for a row that sees none). Differentiable by autograd."""
+    _check_shapes(q, k, v, causal, prefix_len, q_offset)
+    qo = q_offset or 0
     B, S, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -116,14 +128,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, KV, G, n), NEG_INF, device=q.device)
         l = torch.zeros((B, KV, G, n), device=q.device)
         acc = torch.zeros((B, KV, G, n, D), device=q.device)
-        lo, hi = _key_range(q0, q1, Skv, causal, window, prefix_len)
+        lo, hi = _key_range(qo + q0, qo + q1, Skv, causal, window,
+                            prefix_len)
         for k0 in range(lo, hi, block_k):
             k1 = min(hi, k0 + block_k)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qt, k[:, k0:k1].float())
             if softcap:
                 s = softcap * torch.tanh(s / softcap)
-            mask = _mask(q0, q1, k0, k1, causal, window, prefix_len,
-                         q.device)
+            mask = _mask(qo + q0, qo + q1, k0, k1, causal, window,
+                         prefix_len, q.device)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
@@ -143,7 +156,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              prefix_len: int = 0, block_q: int = 128):
+                              prefix_len: int = 0,
+                              q_offset: Optional[int] = None,
+                              block_q: int = 128):
     """The gradient of ``flash_attention_plain``'s output: (dq, dk, dv) in
     the dtypes of q, k and v, for ``dout`` (B, Sq, H, D) and the forward's
     ``out`` and ``lse``. Per query tile it recomputes the visible scores,
@@ -154,6 +169,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
+    q_offset = q_offset or 0
     kf, vf = k.float(), v.float()
     dq = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     dk = torch.zeros((B, Skv, KV, D), dtype=torch.float32, device=q.device)
@@ -161,7 +177,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     for q0 in range(0, S, block_q):
         q1 = min(S, q0 + block_q)
         n = q1 - q0
-        lo, hi = _key_range(q0, q1, Skv, causal, window, prefix_len)
+        lo, hi = _key_range(q_offset + q0, q_offset + q1, Skv, causal,
+                            window, prefix_len)
         qt = q[:, q0:q1].float().reshape(B, n, KV, G, D)
         dot = dout[:, q0:q1].float().reshape(B, n, KV, G, D)
         ot = out[:, q0:q1].float().reshape(B, n, KV, G, D)
@@ -171,7 +188,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
         if softcap:
             t = torch.tanh(s / softcap)
             s = softcap * t
-        mask = _mask(q0, q1, lo, hi, causal, window, prefix_len, q.device)
+        mask = _mask(q_offset + q0, q_offset + q1, lo, hi, causal, window,
+                     prefix_len, q.device)
         L = lse[:, :, q0:q1].reshape(B, KV, G, n)
         p = torch.where(mask, torch.exp(s - L[..., None]), 0.0)
         dv[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, dot)
@@ -196,14 +214,15 @@ def flash_design(dtype: torch.dtype) -> str:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_args(q, k, v, causal, window, prefix_len) -> None:
+def _check_cuda_args(q, k, v, causal, window, prefix_len,
+                     q_offset=None) -> None:
     """Everything the kernel does not take raises here, before a pointer
     crosses into C."""
     for name, t in {"q": q, "k": k, "v": v}.items():
@@ -219,7 +238,7 @@ def _check_cuda_args(q, k, v, causal, window, prefix_len) -> None:
                         f"bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("k and v must have q's dtype")
-    _check_shapes(q, k, v, causal, prefix_len)
+    _check_shapes(q, k, v, causal, prefix_len, q_offset)
     B, _, H, D = q.shape
     if D % 8 or D > 256:
         raise ValueError(f"head dim must be a multiple of 8 up to 256, "
@@ -230,10 +249,10 @@ def _check_cuda_args(q, k, v, causal, window, prefix_len) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal, window, softcap, prefix_len):
+def _launch(q, k, v, causal, window, softcap, prefix_len, q_offset=None):
     """K3 on the current stream, in ``flash_design(q.dtype)``: (out,
     lse)."""
-    _check_cuda_args(q, k, v, causal, window, prefix_len)
+    _check_cuda_args(q, k, v, causal, window, prefix_len, q_offset)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -242,7 +261,7 @@ def _launch(q, k, v, causal, window, softcap, prefix_len):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, S, k.shape[1], H, k.shape[2], D, int(causal),
             -1 if window is None else int(window), int(prefix_len),
-            1.0 / math.sqrt(D),
+            int(q_offset or 0), 1.0 / math.sqrt(D),
             float(softcap or 0.0), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -254,7 +273,8 @@ def _launch(q, k, v, causal, window, softcap, prefix_len):
 def flash_attention_forward(q, k, v, *, causal: bool = True,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None,
-                            prefix_len: int = 0):
+                            prefix_len: int = 0,
+                            q_offset: Optional[int] = None):
     """(out, lse) without autograd: the kernel on CUDA tensors (one launch
     counted in ``flash_attention.launches``), the plain version on CPU
     tensors."""
@@ -264,24 +284,27 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
                 raise ValueError(f"mixed devices: q on cpu, an input on "
                                  f"{t.device}")
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, prefix_len=prefix_len)
+                                     softcap=softcap, prefix_len=prefix_len,
+                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    res = _launch(q, k, v, causal, window, softcap, prefix_len)
+    res = _launch(q, k, v, causal, window, softcap, prefix_len, q_offset)
     flash_attention.launches += 1
     return res
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, prefix_len):
+    def forward(ctx, q, k, v, causal, window, softcap, prefix_len,
+                q_offset):
         out, lse = flash_attention_forward(q, k, v, causal=causal,
                                            window=window, softcap=softcap,
-                                           prefix_len=prefix_len)
+                                           prefix_len=prefix_len,
+                                           q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, q_offset=q_offset)
         return out
 
     @staticmethod
@@ -289,16 +312,18 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    prefix_len: int = 0,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
     """Flash attention of (B, Sq, H, D) queries against (B, Skv, KV, D)
-    keys and values, causal (Sq == Skv, the same positions) or not, with
-    an optional sliding ``window``, ``softcap`` and a prefix of
+    keys and values, causal (Sq == Skv, the same positions, or the
+    queries at rows ``[q_offset, q_offset + Sq)`` of the keys) or not,
+    with an optional sliding ``window``, ``softcap`` and a prefix of
     ``prefix_len`` keys every query sees. Returns (B, Sq, H, D).
 
     CPU tensors take ``flash_attention_plain``. CUDA tensors launch the
@@ -306,7 +331,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch in ``flash_attention.launches``; whatever the kernel does not
     take raises. The gradient is ``flash_attention_bwd_plain``."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap,
-                                 prefix_len)
+                                 prefix_len, q_offset)
 
 
 flash_attention.launches = 0

@@ -1,6 +1,7 @@
-"""One process per rank, for the serve plane's tensor parallelism.
+"""One process per rank: the serve plane's tensor parallelism and the
+training mesh path, at any world size.
 
-``spawn(args, tp)`` starts ``python ARGS...`` once a rank, each with
+``spawn(args, world)`` starts ``python ARGS...`` once a rank, each with
 ``RANK``, ``WORLD_SIZE`` and the path of a ``FileStore`` for the group's
 rendezvous in its environment (and the port's ``src`` on its
 ``PYTHONPATH``), and waits for them with a deadline: as soon as one rank
@@ -9,7 +10,8 @@ cannot leave its peers blocked in a collective. ``init_rank`` joins this
 process to the group those variables describe: a ``FileStore`` when
 ``spawn`` made it, else ``env://`` (``MASTER_ADDR``/``MASTER_PORT``, as
 ``torchrun`` sets them); NCCL on CUDA (one card a rank, ``LOCAL_RANK`` or
-the rank), gloo on the CPU.
+the rank), gloo on the CPU. ``init_local_group`` makes a one-rank group
+of its own over a ``FileStore`` (a (1, 1) mesh on one card).
 
     python -m repro_torch.launch.ranks MODULE:FUNCTION [ARG ...]
 
@@ -37,9 +39,9 @@ STORE_ENV = "REPRO_RANK_STORE"
 SRC = str(Path(__file__).resolve().parents[2])
 
 
-def spawn(args: Sequence[str], tp: int, *, timeout: float,
+def spawn(args: Sequence[str], world: int, *, timeout: float,
           env: Optional[dict] = None) -> int:
-    """Run ``python args...`` as ranks 0..tp-1 of one group and wait.
+    """Run ``python args...`` as ranks 0..world-1 of one group and wait.
     Returns 0 when every rank exits 0, else the first failing rank's exit
     code, or 124 when the deadline ``timeout`` (seconds) passed; every
     rank still running then is killed."""
@@ -49,10 +51,10 @@ def spawn(args: Sequence[str], tp: int, *, timeout: float,
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as tmp:
         procs: List[subprocess.Popen] = []
         try:
-            for r in range(tp):
+            for r in range(world):
                 procs.append(subprocess.Popen(
                     [sys.executable, *args],
-                    env={**base, "RANK": str(r), "WORLD_SIZE": str(tp),
+                    env={**base, "RANK": str(r), "WORLD_SIZE": str(world),
                          STORE_ENV: os.path.join(tmp, "store")}))
             return _wait(procs, time.monotonic() + timeout)
         finally:
@@ -94,6 +96,18 @@ def init_rank(device_type: str, timeout: float = 120.0) -> torch.device:
     dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
     torch.cuda.set_device(dev)
     return dev
+
+
+def init_local_group(device_type: str, timeout: float = 120.0) -> None:
+    """A one-rank group of this process's own over a ``FileStore`` in a
+    temporary file: NCCL on CUDA, gloo on the CPU."""
+    with tempfile.NamedTemporaryFile(prefix="repro-rank-",
+                                     delete=False) as f:
+        path = f.name
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(path, 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=timeout))
 
 
 def main(argv=None) -> int:

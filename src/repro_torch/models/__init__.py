@@ -6,16 +6,17 @@ gather planes, the encoder-decoder family (``encdec``), and the model API
 (``api``)."""
 from .api import (batch_shapes, cache_leaf_dtype, decode_cache_shapes,
                   decode_step, forward, init_decode_cache, loss_fn,
-                  model_spec)
-from .common import (ModelConfig, ParamSpec, init_params, params_from_numpy,
-                     tree_paths)
+                  make_dummy_batch, model_spec)
+from .common import (ModelConfig, ParamSpec, abstract_params, init_params,
+                     param_count, params_from_numpy, tree_paths)
 from .encdec import (decode_train, encdec_cache_shapes, encdec_decode_step,
                      encdec_forward, encdec_prefill_cache, encdec_spec,
                      encode)
 from .lm import (cache_shapes, init_cache, lm_decode_step, lm_forward,
                  lm_loss, lm_spec, unit_pattern)
 
-__all__ = ["ModelConfig", "ParamSpec", "init_params", "params_from_numpy",
+__all__ = ["ModelConfig", "ParamSpec", "abstract_params", "init_params",
+           "make_dummy_batch", "param_count", "params_from_numpy",
            "tree_paths", "batch_shapes", "cache_leaf_dtype", "cache_shapes",
            "decode_cache_shapes", "decode_step", "decode_train",
            "encdec_cache_shapes", "encdec_decode_step", "encdec_forward",

@@ -17,7 +17,7 @@ stub); ``frames`` for the encoder-decoder family (precomputed frame
 embeddings, frontend stub)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,24 +32,39 @@ def model_spec(cfg: ModelConfig) -> Dict:
     return LM.lm_spec(cfg)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict, *,
-            last_logit_only: bool = False):
+def _refuse_encdec_mesh(mesh_ctx) -> None:
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        raise NotImplementedError(
+            "the encoder-decoder family on a mesh is not ported yet "
+            "(ROADMAP.md §1, item 2: the encoder-decoder on a mesh)")
+
+
+def forward(cfg: ModelConfig, params, batch: Dict, *, mesh_ctx=None,
+            unroll: int = 1, last_logit_only: bool = False):
+    """Logits of a batch. ``mesh_ctx`` (a ``sharding.MeshContext``):
+    with a mesh, ``params`` and the batch are DTensors on it and the
+    forward runs the mesh path (``lm.lm_forward``). ``unroll`` is the
+    reference's layer-scan unroll; the port loops eagerly, so it changes
+    nothing."""
     if cfg.family == "encdec":
+        _refuse_encdec_mesh(mesh_ctx)
         return ED.encdec_forward(cfg, params, batch["tokens"],
                                  batch["frames"],
                                  last_logit_only=last_logit_only)
-    return LM.lm_forward(cfg, params, batch["tokens"],
+    return LM.lm_forward(cfg, params, batch["tokens"], mesh_ctx=mesh_ctx,
                          patches=batch.get("patches"),
                          last_logit_only=last_logit_only)
 
 
-def loss_fn(cfg: ModelConfig, params, batch: Dict):
-    logits = forward(cfg, params, batch)
+def loss_fn(cfg: ModelConfig, params, batch: Dict, *, mesh_ctx=None,
+            unroll: int = 1):
+    logits = forward(cfg, params, batch, mesh_ctx=mesh_ctx, unroll=unroll)
     targets = batch["targets"]
     if cfg.frontend == "patch_embed" and logits.shape[1] != targets.shape[1]:
         # drop the image-prefix positions: only text positions carry loss
         logits = logits[:, -targets.shape[1]:]
-    return LM.lm_loss(cfg, logits, targets, batch.get("mask"))
+    return LM.lm_loss(cfg, logits, targets, batch.get("mask"),
+                      mesh_ctx=mesh_ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +102,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                seq_lens=None, paged_tables=None, kv_shard=None):
+                mesh_ctx=None, unroll: int = 1, seq_lens=None,
+                paged_tables=None, kv_shard=None):
     """(logits (B,1,V), cache), the cache written in place. tokens: (B,S)
     — S=1 for plain decode, S>1 for chunked prefill (per-row start
     ``pos``, real lengths ``seq_lens``; G and M layers only). pos: one
@@ -98,16 +114,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     and each attention runs on the rank's head slice, its outputs
     all-gathered over heads. The encoder-decoder family decodes
     one token with one shared position from ``encdec_prefill_cache``'s
-    cache, and raises on the rest, as the reference does."""
+    cache, and raises on the rest, as the reference does. ``mesh_ctx``:
+    with a mesh, params, cache and tokens are DTensors on it
+    (``lm.lm_decode_step``); ``unroll`` changes nothing here."""
     if cfg.family == "encdec":
+        _refuse_encdec_mesh(mesh_ctx)
         if seq_lens is not None or tokens.shape[1] != 1 \
                 or paged_tables is not None or kv_shard is not None:
             raise NotImplementedError(
                 "chunked/paged decode is decoder-LM only (encdec is S=1)")
         return ED.encdec_decode_step(cfg, params, cache, tokens, pos)
     return LM.lm_decode_step(cfg, params, cache, tokens, pos,
-                             seq_lens=seq_lens, paged_tables=paged_tables,
-                             kv_shard=kv_shard)
+                             mesh_ctx=mesh_ctx, seq_lens=seq_lens,
+                             paged_tables=paged_tables, kv_shard=kv_shard)
 
 
 # ---------------------------------------------------------------------------
@@ -129,3 +148,25 @@ def batch_shapes(cfg: ModelConfig, global_batch: int, seq_len: int
         out["frames"] = ((global_batch, cfg.frontend_len, cfg.d_model),
                          cfg.dtype)
     return out
+
+
+def make_dummy_batch(cfg: ModelConfig, global_batch: int, seq_len: int,
+                     generator: Optional[torch.Generator] = None,
+                     device: torch.device | str = "cpu") -> Dict:
+    """A concrete random batch for smoke runs, drawn from ``generator``
+    (seeded 0 when None) on ``device``. Its shapes and dtypes are the
+    reference's; its values cannot be (``jax.random``)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    batch: Dict[str, Any] = {
+        name: torch.randint(0, cfg.vocab, (global_batch, seq_len),
+                            generator=generator, dtype=torch.int32,
+                            device=device)
+        for name in ("tokens", "targets")}
+    if cfg.frontend in ("patch_embed", "audio_frames"):
+        name = "patches" if cfg.frontend == "patch_embed" else "frames"
+        shape, dtype = batch_shapes(cfg, global_batch, seq_len)[name]
+        batch[name] = torch.randn(shape, generator=generator,
+                                  dtype=torch.float32,
+                                  device=device).to(dtype)
+    return batch

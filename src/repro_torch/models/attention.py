@@ -88,9 +88,13 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       softcap: Optional[float] = None,
                       prefix_len: int = 0,
                       q_chunk: int = 2048, kv_chunk: int = 2048,
-                      exact_causal: bool = True) -> torch.Tensor:
+                      exact_causal: bool = True,
+                      q_offset: int = 0) -> torch.Tensor:
     """q: (B,Sq,H,D); k,v: (B,Skv,KV,D) with H % KV == 0. Self-attention
-    layout (Sq == Skv, same positions). Returns (B,Sq,H,D)."""
+    layout (Sq == Skv, same positions), or with ``q_offset`` the queries
+    at rows ``[q_offset, q_offset + Sq)`` of the keys (one model rank's
+    query slice under context parallelism; the masks read the absolute
+    row). Returns (B,Sq,H,D)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     n_rep = H // KV
@@ -111,7 +115,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     outs = []
     for i in range(nq):
         qi = q[:, i * qc:(i + 1) * qc]
-        q0 = i * qc
+        q0 = q_offset + i * qc
         prefix_hi = -(-prefix_len // kc) if prefix_len else 0
         if causal and window is not None:
             # banded: only chunks intersecting [q0 - window + 1, q0 + qc)

@@ -217,3 +217,55 @@ def params_from_numpy(tree, dtype: Optional[torch.dtype] = None,
         t = _tensor_from_numpy(np.asarray(a)).to(device)
         return t if dtype is None else t.to(dtype)
     return tree_map(conv, tree)
+
+
+# ---------------------------------------------------------------------------
+# Accounting
+# ---------------------------------------------------------------------------
+
+
+def meta_dtensor(shape, dtype: torch.dtype, mesh, placements):
+    """A DTensor of global ``shape`` laid out over ``mesh`` by
+    ``placements``, whose local shard is a meta tensor of this rank's
+    shape (``DTensor.from_local`` with the global shape and stride given,
+    unchecked): shapes and bytes, no storage. The placements must shard
+    only dims that divide."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            if local[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not "
+                                 f"divide over {n} ranks")
+            local[pl.dim] //= n
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh, placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=tuple(reversed(stride)))
+
+
+def abstract_params(spec_tree, dtype=torch.bfloat16, sharding_fn=None):
+    """The parameter tree as meta-device tensors: shapes and dtypes, no
+    storage (what the reference's ShapeDtypeStruct tree is to its AOT
+    lowering). With ``sharding_fn(path, spec) -> (mesh, placements)``
+    each leaf is a DTensor whose local shard is a meta tensor of this
+    rank's shape (``meta_dtensor``)."""
+    def walk(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
+        s: ParamSpec = tree
+        d = s.dtype or dtype
+        if sharding_fn is None:
+            return torch.empty(s.shape, dtype=d, device="meta")
+        return meta_dtensor(s.shape, d, *sharding_fn(prefix, s))
+
+    return walk(spec_tree)
+
+
+def param_count(spec_tree) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in tree_paths(spec_tree))

@@ -3,13 +3,26 @@ attention layer and the MLP; mirrors ``src/repro/models/layers.py``. Plain
 functions over param dicts of tensors; fp32 where numerics demand it
 (norms, softmax, rope), the model dtype elsewhere.
 
-Every mode of the reference's ``attention`` but its tensor-parallel ones:
-training/prefill (no cache: the flash-attention kernel on CUDA, ``_sdpa``
-or ``chunked_attention`` on CPU), causal, bidirectional (an encoder) or
-with an image prefix; the decode modes: paged (chunk written into pool
-rows, attention out of the pool), and the gather plane's per-slot and
-bulk modes over contiguous caches; and cross-attention over an encoder's
-precomputed keys and values (``cross_kv_spec``, ``make_cross_kv``).
+Every mode of the reference's ``attention``: training/prefill (no cache:
+the flash-attention kernel on CUDA, ``_sdpa`` or ``chunked_attention`` on
+CPU), causal, bidirectional (an encoder) or with an image prefix; the
+decode modes: paged (chunk written into pool rows, attention out of the
+pool, optionally head-sharded over a ``KVShardCtx``), and the gather
+plane's per-slot and bulk modes over contiguous caches; and
+cross-attention over an encoder's precomputed keys and values
+(``cross_kv_spec``, ``make_cross_kv``).
+
+The mesh path (a ``MeshContext`` with a ``DeviceMesh``): parameters and
+activations are DTensors, and the reference's constraints sit at the same
+places as ``redistribute`` calls — ``gather_seq`` on entry to attention
+and the MLP, ``_tp_qkv_constraints`` on q/k/v (heads over model, or the
+context-parallel fallback), the MLP intermediate over ``ff``, and the
+vocab-parallel logits. The q/k/v projections and the unembedding are
+DTensor products. What DTensor cannot propagate runs on each rank's local
+shards under ``local_map``, with the placements set just before it: the
+embedding lookup (``_mesh_embed``), the MLP (``_mesh_mlp``), and RoPE, the
+attention kernels and the output projection (``_mesh_attention``,
+``_mesh_decode_attention``).
 """
 from __future__ import annotations
 
@@ -19,6 +32,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import (decode_attention, decode_attention_plain,
                        flash_attention, paged_attention_plain,
@@ -156,31 +171,33 @@ def _use_chunked(cfg: ModelConfig, Sq: int) -> bool:
 
 
 def _self_attention(cfg: ModelConfig, q, k, v, *, window, bidirectional,
-                    prefix_len):
+                    prefix_len, q_offset: Optional[int] = None):
     """Training/prefill attention of (B,S,H,D) queries against the same
     positions' (B,S,KV,D) keys and values: causal with an optional
     ``window`` and a ``prefix_len`` every query sees, or
     ``bidirectional``. ``attn_impl="auto"`` on CUDA tensors takes the
     flash-attention kernel, which raises on what it does not take;
     otherwise the reference's rule: ``_sdpa`` with a dense mask, or
-    ``chunked_attention``."""
-    Sq = q.shape[1]
+    ``chunked_attention``. ``q_offset``: the queries are rows
+    ``[q_offset, q_offset + Sq)`` of the keys (context parallelism)."""
+    Sq, Skv = q.shape[1], k.shape[1]
     if cfg.attn_impl == "auto" and q.device.type == "cuda":
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=not bidirectional,
                                window=window, softcap=cfg.attn_logit_softcap,
-                               prefix_len=prefix_len)
-    if _use_chunked(cfg, Sq):
+                               prefix_len=prefix_len, q_offset=q_offset)
+    if _use_chunked(cfg, Skv):
         return chunked_attention(
             q, k, v, causal=not bidirectional, window=window,
             softcap=cfg.attn_logit_softcap, prefix_len=prefix_len,
             q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-            exact_causal=cfg.exact_causal)
+            exact_causal=cfg.exact_causal, q_offset=q_offset or 0)
     if bidirectional:
-        mask = torch.ones((1, 1, Sq, Sq), dtype=torch.bool, device=q.device)
+        mask = torch.ones((1, 1, Sq, Skv), dtype=torch.bool,
+                          device=q.device)
     else:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Sq, device=q.device)[None, :]
+        qpos = (q_offset or 0) + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
         m = kpos <= qpos
         if window is not None:
             m &= kpos > qpos - window
@@ -297,12 +314,160 @@ def _cross_attention(cfg: ModelConfig, q, k, v):
     return _sdpa(cfg, q, k, v, mask)
 
 
+def _tp_qkv_constraints(mesh_ctx, q, k, v):
+    """Inside the TP region: heads over model, batch over data. When the
+    head count does not divide the model axis (qwen2: 28H, whisper: 8H on
+    TP=16), fall back to CONTEXT parallelism for long inputs: queries
+    sharded over model along the sequence (each rank attends its query
+    slice against replicated KV) — otherwise a 32k prefill keeps full
+    (B, S, H, D) projections replicated on every chip."""
+    dp, mdl = mesh_ctx.data_axes, mesh_ctx.model_axis
+    tp = mesh_ctx.tp_size
+    H = q.shape[2]
+    if H % max(tp, 1) == 0 or tp <= 1:
+        q = mesh_ctx.constrain_dims(q, (dp, None, mdl, None))
+        k = mesh_ctx.constrain_dims(k, (dp, None, mdl, None))
+        v = mesh_ctx.constrain_dims(v, (dp, None, mdl, None))
+    elif q.shape[1] > 1 and q.shape[1] % tp == 0:
+        q = mesh_ctx.constrain_dims(q, (dp, mdl, None, None))
+        k = mesh_ctx.constrain_dims(k, (dp, None, None, None))
+        v = mesh_ctx.constrain_dims(v, (dp, None, None, None))
+    return q, k, v
+
+
+def _local_kv_heads(mesh_ctx, q_pl, k_pl, H: int, KV: int, kl, vl):
+    """The K/V heads that this rank's query heads read. When the queries
+    are sharded over heads and K/V are not (few KV heads), the local
+    queries ``[r·H/tp, (r+1)·H/tp)`` read KV heads ``h // (H/KV)``: a
+    contiguous slice when the local heads hold whole groups, else one KV
+    head a query head."""
+    m = mesh_ctx.model_dim()
+    if not isinstance(q_pl[m], Shard) or q_pl[m].dim != 2 \
+            or isinstance(k_pl[m], Shard):
+        return kl, vl
+    tp, G = mesh_ctx.tp_size, H // KV
+    h0, n = mesh_ctx.model_rank() * (H // tp), H // tp
+    if n % G == 0:
+        sl = slice(h0 // G, (h0 + n) // G)
+        return kl[:, :, sl], vl[:, :, sl]
+    idx = torch.arange(h0, h0 + n, device=kl.device) // G
+    return kl[:, :, idx], vl[:, :, idx]
+
+
+def _partial_where_split(pl, split):
+    """``pl`` with ``Partial()`` on the mesh dims where ``split`` shards
+    and ``pl`` replicates: the gradient layout of an input every rank of
+    those dims holds whole but uses for its own share of the work (each
+    rank's gradient is a part of the sum)."""
+    return tuple(Partial() if isinstance(a, Replicate)
+                 and isinstance(b, Shard) else a for a, b in zip(pl, split))
+
+
+def _out_placements(mesh_ctx, q_pl):
+    """The layout of the output projection of attention outputs laid out
+    as q (``q_pl``): rows as q's, and a partial sum over model where the
+    heads are sharded there."""
+    m = mesh_ctx.model_dim()
+    out = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else
+           Replicate() for pl in q_pl]
+    if isinstance(q_pl[m], Shard):
+        # heads sharded: a partial sum (over one rank, where the model
+        # axis has size 1 and the rules leave wo whole)
+        out[m] = Shard(1) if q_pl[m].dim == 1 else Partial()
+    return out
+
+
+def _mesh_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, *, positions,
+                    window, bidirectional, prefix_len):
+    """RoPE, the training/prefill attention and the output projection on
+    each rank's shards (``local_map`` with q/k/v's placements as
+    ``_tp_qkv_constraints`` set them). Queries sharded over the sequence
+    (the context-parallel fallback) are rows ``[r·S/tp, (r+1)·S/tp)`` on
+    model rank r: RoPE takes their positions and the attention their
+    ``q_offset``, and the projected rows stay sequence-sharded. Queries
+    sharded over heads give a partial sum over model."""
+    H, KV = q.shape[2], k.shape[2]
+    q_pl, k_pl, v_pl = (tuple(t.placements) for t in (q, k, v))
+    wo_pl = tuple(wo.placements)
+    m = mesh_ctx.model_dim()
+    cp = isinstance(q_pl[m], Shard) and q_pl[m].dim == 1
+
+    def body(ql, kl, vl, wol):
+        off = mesh_ctx.model_rank() * ql.shape[1] if cp else None
+        rows = slice(off or 0, (off or 0) + ql.shape[1])
+        ql = rope(ql, positions[:, rows], cfg.rope_theta)
+        kl = rope(kl, positions, cfg.rope_theta)
+        kl, vl = _local_kv_heads(mesh_ctx, q_pl, k_pl, H, KV, kl, vl)
+        out = _self_attention(cfg, ql, kl, vl, window=window,
+                              bidirectional=bidirectional,
+                              prefix_len=prefix_len, q_offset=off)
+        return torch.einsum("bshk,hkd->bsd", out, wol)
+
+    return local_map(body,
+                     out_placements=_out_placements(mesh_ctx, q_pl),
+                     in_placements=(q_pl, k_pl, v_pl, wo_pl),
+                     in_grad_placements=(
+                         q_pl, _partial_where_split(k_pl, q_pl),
+                         _partial_where_split(v_pl, q_pl),
+                         _partial_where_split(wo_pl, q_pl)),
+                     device_mesh=mesh_ctx.mesh,
+                     redistribute_inputs=True)(q, k, v, wo)
+
+
+def _mesh_decode_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, cache,
+                           cache_pos, cache_valid_len, positions):
+    """A bulk decode step's attention on each rank's shards (``local_map``
+    with the placements set just before it): the chunk's RoPE, its write
+    into the rank's shard of the cache, in place, and the attention over
+    it (``decode_attention``, the K2 kernel on CUDA), and the output
+    projection. The cache shards batch over data and KV heads over model
+    (or keeps them whole), so each rank's query heads read only its own
+    cache shard."""
+    q_pl, k_pl = tuple(q.placements), tuple(k.placements)
+    wo_pl = tuple(wo.placements)
+    c_pl = tuple(cache["k"].placements)
+    if not q_pl == k_pl == c_pl:
+        raise NotImplementedError(
+            f"a decode step whose q/k placements {q_pl}/{k_pl} differ "
+            f"from its cache's {c_pl}")
+    base = cache_pos + 1 if cache_valid_len is None else cache_valid_len
+
+    def body(ql, kl, vl, wol, ck, cv):
+        ql = rope(ql, positions, cfg.rope_theta)
+        kl = rope(kl, positions, cfg.rope_theta)
+        B = ql.shape[0]
+        _write_bulk(ck, cache_pos, kl.to(ck.dtype))
+        _write_bulk(cv, cache_pos, vl.to(cv.dtype))
+        valid = torch.full((B,), int(base), dtype=torch.int32,
+                           device=ql.device)
+        attend = (decode_attention_plain if cfg.decode_kernel == "xla"
+                  else decode_attention)
+        out = attend(ql[:, 0].contiguous(), ck, cv, valid,
+                     softcap=cfg.attn_logit_softcap)[:, None]
+        return torch.einsum("bshk,hkd->bsd", out, wol)
+
+    return local_map(body,
+                     out_placements=_out_placements(mesh_ctx, q_pl),
+                     in_placements=(q_pl, k_pl, k_pl, wo_pl, c_pl, c_pl),
+                     device_mesh=mesh_ctx.mesh,
+                     redistribute_inputs=True)(q, k, v, wo, cache["k"],
+                                               cache["v"])
+
+
 def attention(cfg: ModelConfig, params, x, *, positions, window=None,
               cache: Optional[Dict] = None, cache_pos=None,
               cache_valid_len=None, paged: Optional[Dict] = None,
               cross_kv=None, bidirectional: bool = False,
-              prefix_len: int = 0, kv_shard=None):
+              prefix_len: int = 0, kv_shard=None, mesh_ctx=None):
     """Attention layer (proj → rope → attend → proj). Returns (out, cache).
+
+    With a mesh (``mesh_ctx``; DTensor params and ``x``): ``gather_seq``
+    on entry, q/k/v laid out by ``_tp_qkv_constraints``, then RoPE and
+    the attention on each rank's shards: ``_mesh_attention`` without a
+    cache, ``_mesh_decode_attention`` for a bulk decode step into a
+    DTensor cache (the decode cache must not shard the sequence; the
+    caller checks), each with the output projection: a partial sum over
+    model where heads are sharded.
 
       * training/prefill: ``cache=None``; causal (or bidirectional)
         self-attention over the chunk with an optional sliding ``window``
@@ -337,6 +502,19 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
     "xla" route is ``_sdpa``, which casts the probabilities to v's dtype:
     in bf16 it parts from the kernel there.)"""
     B, Sq = x.shape[:2]
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        assert cross_kv is None and paged is None and kv_shard is None, \
+            "the mesh path has no cross-attention and no paged plane"
+        x = mesh_ctx.gather_seq(x)     # SP all-gather on TP-region entry
+        q, k, v = _tp_qkv_constraints(mesh_ctx, *_qkv(cfg, params, x, x))
+        if cache is None:
+            return _mesh_attention(cfg, mesh_ctx, q, k, v, params["wo"],
+                                   positions=positions, window=window,
+                                   bidirectional=bidirectional,
+                                   prefix_len=prefix_len), None
+        return _mesh_decode_attention(cfg, mesh_ctx, q, k, v, params["wo"],
+                                      cache, cache_pos, cache_valid_len,
+                                      positions), cache
     if cross_kv is not None:
         q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
         if cfg.qkv_bias:
@@ -420,7 +598,17 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
             "wo": p((f, d), ("ff", "embed"), init="scaled")}
 
 
-def mlp(cfg: ModelConfig, params, x):
+def mlp(cfg: ModelConfig, params, x, mesh_ctx=None):
+    """The dense MLP. With a mesh: ``gather_seq`` on entry and the
+    Megatron layout on each rank's shards (``local_map``): ``wi`` and
+    ``wo`` sharded over model along ``ff`` (their ``fsdp=False`` layout),
+    so the intermediate is too (the reference's constraint on it) and the
+    second product is a partial sum over model that the residual add
+    reduce-scatters back into the sequence-parallel layout. (Left to
+    DTensor, ``einsum`` would flatten ``(2, ff)`` with ``ff`` sharded, a
+    layout its fake-tensor dry run cannot take.)"""
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        return _mesh_mlp(cfg, mesh_ctx, params, x)
     h = torch.einsum("bsd,dcf->bscf", x, params["wi"])
     if cfg.act == "swiglu":
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
@@ -429,6 +617,28 @@ def mlp(cfg: ModelConfig, params, x):
     else:
         h = F.gelu(h[..., 0, :], approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, params["wo"])
+
+
+def _mesh_mlp(cfg: ModelConfig, mesh_ctx, params, x):
+    x = mesh_ctx.gather_seq(x)         # SP all-gather on TP-region entry
+    wi, wo = params["wi"], params["wo"]
+    x_pl, wi_pl, wo_pl = (tuple(t.placements) for t in (x, wi, wo))
+    m = mesh_ctx.model_dim()
+    out_pl = list(x_pl)
+    if isinstance(wi_pl[m], Shard):
+        out_pl[m] = Partial()
+
+    def body(xl, wil, wol):
+        return mlp(cfg, {"wi": wil, "wo": wol}, xl)
+
+    return local_map(body, out_placements=out_pl,
+                     in_placements=(x_pl, wi_pl, wo_pl),
+                     in_grad_placements=(
+                         _partial_where_split(x_pl, wi_pl),
+                         _partial_where_split(wi_pl, x_pl),
+                         _partial_where_split(wo_pl, x_pl)),
+                     device_mesh=mesh_ctx.mesh,
+                     redistribute_inputs=True)(x, wi, wo)
 
 
 # ---------------------------------------------------------------------------
@@ -443,18 +653,71 @@ def embed_spec(cfg: ModelConfig) -> Dict:
     return spec
 
 
-def embed(cfg: ModelConfig, params, tokens):
+def embed(cfg: ModelConfig, params, tokens, mesh_ctx=None):
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        return _mesh_embed(cfg, mesh_ctx, params["tok"], tokens)
     h = params["tok"].to(cfg.dtype)[tokens.long()]
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
 
 
-def unembed(cfg: ModelConfig, params, h):
+def _mesh_embed(cfg: ModelConfig, mesh_ctx, tok, tokens):
+    """The vocab-parallel lookup on each rank's shards: the table gathered
+    over the FSDP axes (its ``fsdp=False`` layout, vocab over model where
+    it divides), the tokens batch over data and whole over model; each
+    model rank looks up the rows of its vocab slice and zeros the rest,
+    so the output is a partial sum over model (whole where the vocab is
+    not sharded), which ``shard_activations`` reduce-scatters."""
+    tok = mesh_ctx.constrain_tree(tok, embed_spec(cfg)["tok"], fsdp=False)
+    t_pl = mesh_ctx.placements(mesh_ctx.dims_pspec(
+        tokens.shape, (mesh_ctx.data_axes, None)))
+    m = mesh_ctx.model_dim()
+    sharded = isinstance(tok.placements[m], Shard)
+    out_pl = list(t_pl)
+    out_pl[m] = Partial() if sharded else Replicate()
+    scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
+
+    def body(tl, ids):
+        ids = ids.long()
+        if sharded:
+            v0 = mesh_ctx.model_rank() * tl.shape[0]
+            ids = ids - v0
+            hit = (ids >= 0) & (ids < tl.shape[0])
+            h = tl.to(cfg.dtype)[torch.where(hit, ids, 0)]
+            h = torch.where(hit[..., None], h, 0)
+        else:
+            h = tl.to(cfg.dtype)[ids]
+        return h * scale if cfg.embed_scale else h
+
+    tok_pl = tuple(tok.placements)
+    return local_map(body, out_placements=out_pl,
+                     in_placements=(tok_pl, t_pl),
+                     in_grad_placements=(_partial_where_split(tok_pl, t_pl),
+                                         t_pl),
+                     device_mesh=mesh_ctx.mesh,
+                     redistribute_inputs=True)(tok, tokens)
+
+
+def unembed(cfg: ModelConfig, params, h, mesh_ctx=None):
+    """Logits of h. With a mesh: the (tied or own) unembedding in its
+    ``fsdp=False`` layout against the sequence-gathered h, the logits
+    vocab-parallel (vocab over model)."""
+    if mesh_ctx is not None:
+        h = mesh_ctx.gather_seq(h)
+        spec = embed_spec(cfg)
+        name = "tok" if cfg.tie_embeddings else "unembed"
+        params = {name: mesh_ctx.constrain_tree(
+            params[name], spec[name], fsdp=False)}
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", h, params["tok"])
     else:
         logits = torch.einsum("bsd,dv->bsv", h, params["unembed"])
+    if mesh_ctx is not None:
+        # vocab-parallel logits: the unembedding stays sharded over model;
+        # the loss reduces over the vocab shards
+        logits = mesh_ctx.constrain_dims(
+            logits, (mesh_ctx.data_axes, None, mesh_ctx.model_axis))
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = (c * torch.tanh(logits.float() / c)).to(logits.dtype)

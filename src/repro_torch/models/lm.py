@@ -17,6 +17,14 @@ text-only, as the reference's is; it runs every kind one token at a time
 on the gather plane; chunks (S > 1) and the paged plane need
 absolute-position KV caches, G and M layers only, and raise elsewhere, as
 the reference does.
+
+With a ``MeshContext`` over a ``DeviceMesh`` (the mesh path: parameters,
+batch and cache are DTensors), each sublayer's weights are gathered over
+the FSDP axes right before use (``constrain_tree(..., fsdp=False)``) and
+the residual stream is laid out batch over data, sequence over model
+(``shard_activations``) at entry and after each sublayer of the unit, as
+in the reference. G, L and M layers run on a mesh; the R and W kinds and
+a decode cache that shards the sequence raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,10 +32,13 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .common import ModelConfig, ParamSpec, p, tree_map
+from ..sharding import all_max, reduce_from_group
+from .common import ModelConfig, ParamSpec, p, tree_map, tree_paths
 from .moe import moe, moe_spec
 from .recurrent import (rglru_block, rglru_block_spec, rglru_state_shape,
                         rwkv_channel_mix, rwkv_channel_mix_spec,
@@ -111,15 +122,37 @@ def _unit_keys(pat: str) -> List[str]:
 # ---------------------------------------------------------------------------
 
 
+def _on_mesh(mesh_ctx) -> bool:
+    return mesh_ctx is not None and mesh_ctx.mesh is not None
+
+
+def _refuse_on_mesh(kinds) -> None:
+    bad = sorted(set(kinds) & {"R", "W"})
+    if bad:
+        raise NotImplementedError(
+            f"layer kinds {bad} on a mesh are not ported yet (ROADMAP.md "
+            "§1, item 1: the R and W layers on a mesh)")
+
+
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
-                    paged=None, prefix_len: int = 0, kv_shard=None):
+                    paged=None, prefix_len: int = 0, kv_shard=None,
+                    mesh_ctx=None):
     """One sublayer. Without ``cache`` the training/prefill form (L and R
     layers see ``cfg.window``; attention sees an image prefix of
     ``prefix_len`` positions); with it a decode, which writes the layer's
     cache (or pool pages) in place: G, L and M layers their KV, R and W
     layers their recurrent state, each leaf cast to its own dtype, as the
-    reference casts the state it returns. Returns h."""
+    reference casts the state it returns. With a mesh the sublayer's
+    weights are first gathered over the FSDP axes (``constrain_tree(...,
+    fsdp=False)``). Returns h."""
+    if _on_mesh(mesh_ctx):
+        _refuse_on_mesh(kind)
+        # FSDP: gather this sublayer's weights (in bf16) right before use
+        prm = mesh_ctx.constrain_tree(prm, _sublayer_spec(cfg, kind),
+                                      fsdp=False)
+    else:
+        mesh_ctx = None
     if kind == "W":
         x = L.norm(cfg, prm["ln1"], h)
         tm_out, tm_state = rwkv_time_mix(
@@ -147,12 +180,14 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                               window=window, cache=cache,
                               cache_pos=cache_pos,
                               cache_valid_len=cache_valid_len, paged=paged,
-                              prefix_len=prefix_len, kv_shard=kv_shard)
+                              prefix_len=prefix_len, kv_shard=kv_shard,
+                              mesh_ctx=mesh_ctx)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
     x = L.norm(cfg, prm["ln2"], h)
-    ff = moe(cfg, prm["moe"], x) if kind == "M" else L.mlp(cfg, prm["mlp"], x)
+    ff = (moe(cfg, prm["moe"], x, mesh_ctx) if kind == "M"
+          else L.mlp(cfg, prm["mlp"], x, mesh_ctx))
     if cfg.post_norms:
         ff = L.norm(cfg, prm["ln2_post"], ff)
     return h + ff
@@ -170,8 +205,8 @@ def _write_state(cache: Dict, state: Dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def lm_forward(cfg: ModelConfig, params, tokens, *, patches=None,
-               last_logit_only: bool = False):
+def lm_forward(cfg: ModelConfig, params, tokens, *, mesh_ctx=None,
+               patches=None, last_logit_only: bool = False):
     """tokens: (B,S) int. For the image-prefix (vlm) family, ``patches``
     (B,P,frontend_dim) are projected, scaled by sqrt(d_model) under
     ``embed_scale`` and prepended as a bidirectional prefix of P
@@ -181,24 +216,48 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, patches=None,
     non-reentrant), where the reference wraps its scan body in
     ``jax.checkpoint``: its inputs are kept and its inside is recomputed
     in the backward. The tail layers are not checkpointed, as in the
-    reference."""
+    reference. ``mesh_ctx``: the mesh path (see the module's docstring);
+    ``tokens`` and ``patches`` are then DTensors laid out by
+    ``batch_pspec``."""
     pat, n_rep, tail = unit_pattern(cfg)
-    h = L.embed(cfg, params["embed"], tokens)
+    mesh = _on_mesh(mesh_ctx)
+    if mesh:
+        _refuse_on_mesh(pat + tail)
+    h = L.embed(cfg, params["embed"], tokens, mesh_ctx if mesh else None)
     prefix_len = 0
     if cfg.frontend == "patch_embed":
         assert patches is not None, "the vlm family needs patches"
-        pe = patches.to(cfg.dtype) @ params["frontend_proj"]
-        if cfg.embed_scale:
-            pe = pe * torch.tensor(math.sqrt(cfg.d_model), dtype=pe.dtype)
+        if mesh:
+            # the concatenation runs on the sequence-gathered parts
+            patches = mesh_ctx.gather_seq(patches)
+            h = mesh_ctx.gather_seq(h)
+            proj = mesh_ctx.constrain_tree(
+                params["frontend_proj"], lm_spec(cfg)["frontend_proj"],
+                fsdp=False)
+            pe = patches.to(cfg.dtype) @ proj
+            if cfg.embed_scale:
+                # the bf16-rounded factor the meshless path multiplies by
+                pe = pe * float(torch.tensor(math.sqrt(cfg.d_model),
+                                             dtype=pe.dtype))
+        else:
+            pe = patches.to(cfg.dtype) @ params["frontend_proj"]
+            if cfg.embed_scale:
+                pe = pe * torch.tensor(math.sqrt(cfg.d_model),
+                                       dtype=pe.dtype)
         h = torch.cat([pe, h], dim=1)
         prefix_len = patches.shape[1]
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
+    if mesh:
+        h = mesh_ctx.shard_activations(h)
 
     def unit(h, prm_r):
         for key in _unit_keys(pat):
             h = _apply_sublayer(cfg, key.split("_")[1], prm_r[key], h,
-                                positions=positions, prefix_len=prefix_len)
+                                positions=positions, prefix_len=prefix_len,
+                                mesh_ctx=mesh_ctx)
+            if mesh:
+                h = mesh_ctx.shard_activations(h)
         return h
 
     if n_rep > 0:
@@ -210,11 +269,22 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, patches=None,
                            use_reentrant=False)
     for i, k in enumerate(tail):
         h = _apply_sublayer(cfg, k, params[f"tail_{i}_{k}"], h,
-                            positions=positions, prefix_len=prefix_len)
+                            positions=positions, prefix_len=prefix_len,
+                            mesh_ctx=mesh_ctx)
     if last_logit_only:
         h = h[:, -1:]
-    h = L.norm(cfg, params["ln_f"], h)
-    return L.unembed(cfg, params["embed"], h)
+    return L.unembed(cfg, params["embed"],
+                     L.norm(cfg, _final_norm(cfg, params, mesh_ctx), h),
+                     mesh_ctx if mesh else None)
+
+
+def _final_norm(cfg: ModelConfig, params, mesh_ctx):
+    """``ln_f``'s params; on a mesh gathered over the FSDP axes, so the
+    norm runs on the activations' own layout."""
+    if not _on_mesh(mesh_ctx):
+        return params["ln_f"]
+    return mesh_ctx.constrain_tree(params["ln_f"], L.norm_spec(cfg),
+                                   fsdp=False)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +333,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                   seq_lens=None, paged_tables=None, kv_shard=None):
+                   mesh_ctx=None, seq_lens=None, paged_tables=None,
+                   kv_shard=None):
     """One decode step over a chunk of S tokens per row. tokens: (B,S);
     pos: (B,) int32 per-slot start positions (continuous batching), or one
     int shared by every row (bulk decode). For L layers the cache is a
@@ -286,9 +357,20 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     the pool leaves hold this rank's KV heads and each attention runs on
     the rank's head slice, its outputs all-gathered over heads.
 
+    ``mesh_ctx`` (the mesh path): params, cache and tokens are DTensors
+    laid out by the rules (``cache_pspec`` for the cache); a bulk step
+    (one shared ``pos``) of one token runs each attention on the rank's
+    cache shard (``layers._mesh_decode_attention``). A cache whose
+    ``cache_pspec`` shards the sequence, and per-slot positions, raise
+    ``NotImplementedError``.
+
     Returns (logits (B,1,vocab), cache)."""
     pat, n_rep, tail = unit_pattern(cfg)
     B, S = tokens.shape
+    mesh = _on_mesh(mesh_ctx)
+    if mesh:
+        _check_mesh_decode(mesh_ctx, pat + tail, cache, pos, S,
+                           seq_lens, paged_tables, kv_shard)
     if S > 1 or paged_tables is not None:
         unsupported = set(pat + tail) - {"G", "M"}
         if unsupported:
@@ -304,7 +386,9 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         paged = {"tables": paged_tables, "seq_lens": seq_lens}
     assert kv_shard is None or paged is not None, \
         "serve TP (kv_shard) only shards the paged data plane"
-    h = L.embed(cfg, params["embed"], tokens)
+    h = L.embed(cfg, params["embed"], tokens, mesh_ctx if mesh else None)
+    if mesh:
+        h = mesh_ctx.shard_activations(h)
     steps = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
     positions = pos[:, None].int() + steps if per_slot else pos + steps
 
@@ -326,7 +410,8 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                                cache=layer_cache,
                                cache_pos=sub_cache_pos(kind),
                                cache_valid_len=sub_valid_len(kind),
-                               paged=paged, kv_shard=kv_shard)
+                               paged=paged, kv_shard=kv_shard,
+                               mesh_ctx=mesh_ctx)
 
     for li in range(n_rep):
         for key in _unit_keys(pat):
@@ -343,8 +428,32 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 if seq_lens is not None
                 else torch.full((B,), S - 1, device=h.device))
         h = h[torch.arange(B, device=h.device), last][:, None]
-    h = L.norm(cfg, params["ln_f"], h)
-    return L.unembed(cfg, params["embed"], h), cache
+    h = L.norm(cfg, _final_norm(cfg, params, mesh_ctx), h)
+    return L.unembed(cfg, params["embed"], h, mesh_ctx if mesh else None), \
+        cache
+
+
+def _check_mesh_decode(mesh_ctx, kinds, cache, pos, S, seq_lens,
+                       paged_tables, kv_shard) -> None:
+    """What the mesh path's decode step does not take raises here."""
+    _refuse_on_mesh(kinds)
+    if (S != 1 or seq_lens is not None or paged_tables is not None
+            or kv_shard is not None
+            or (isinstance(pos, torch.Tensor) and pos.ndim == 1)):
+        raise NotImplementedError(
+            "the mesh path decodes one token a row at one shared position; "
+            "the serve engines' chunks, per-slot positions and paged plane "
+            "take a KVShardCtx instead")
+
+    for path, leaf in tree_paths(cache):
+        spec = mesh_ctx.cache_pspec(path, tuple(leaf.shape))
+        seq = 2 if "stack" in path else 1
+        if len(spec) > seq and spec[seq] is not None:
+            raise NotImplementedError(
+                f"decode cache leaf {'/'.join(path)} {tuple(leaf.shape)} "
+                f"shards its sequence ({spec}); that needs a cross-rank "
+                "merge of the decode softmax, not ported yet (ROADMAP.md "
+                "§1, item 3: sequence-sharded decode caches)")
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +461,12 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(cfg: ModelConfig, logits, targets, mask=None):
-    """Next-token cross entropy; fp32 log-softmax. targets already shifted."""
+def lm_loss(cfg: ModelConfig, logits, targets, mask=None, mesh_ctx=None):
+    """Next-token cross entropy; fp32 log-softmax. targets already shifted.
+    With a mesh the logits are vocab-parallel DTensors and the loss is
+    ``_mesh_lm_loss``'s."""
+    if _on_mesh(mesh_ctx):
+        return _mesh_lm_loss(mesh_ctx, logits, targets, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -362,3 +475,55 @@ def lm_loss(cfg: ModelConfig, logits, targets, mask=None):
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _mesh_lm_loss(mesh_ctx, logits, targets, mask=None):
+    """The cross entropy of vocab-parallel logits on each rank's shards
+    (``local_map``): rows batch over data, whole over model, the vocab
+    over model where it divides. The log-sum-exp and the gold logit
+    reduce over the vocab shards (a max and two sums over the model
+    group), so no rank gathers the (B, S, V) logits. Each data rank sums
+    its rows' losses and mask; the two sums are partial over the data
+    axes, and their quotient is the mean."""
+    l_pl = tuple(logits.placements)
+    m = mesh_ctx.model_dim()
+    # the vocab split over several model ranks; over one (or none) the
+    # rank's logits are whole and the loss is the meshless expression
+    sharded = isinstance(l_pl[m], Shard) and mesh_ctx.tp_size > 1
+    group = mesh_ctx.model_group() if sharded else None
+    rows = list(l_pl)
+    rows[m] = Replicate()
+    out_pl = [Partial() if isinstance(pl, Shard) else Replicate()
+              for pl in rows]
+    args = [logits, targets] + ([] if mask is None else [mask])
+
+    def body(lg, tg, mk=None):
+        lg = lg.float()
+        if sharded:
+            v0 = mesh_ctx.model_rank() * lg.shape[-1]
+            mx = all_max(lg.detach().amax(dim=-1), group)
+            se = reduce_from_group(torch.exp(lg - mx[..., None]).sum(-1),
+                                   group)
+            logz = mx + torch.log(se)
+            t = tg.long() - v0
+            hit = (t >= 0) & (t < lg.shape[-1])
+            gold = torch.gather(lg, -1,
+                                torch.where(hit, t, 0)[..., None])[..., 0]
+            gold = reduce_from_group(torch.where(hit, gold, 0.0), group)
+        else:
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, tg[..., None].long())[..., 0]
+        nll = logz - gold
+        if mk is None:
+            return nll.sum(), torch.tensor(float(nll.numel()),
+                                           device=nll.device)
+        mk = mk.float()
+        return (nll * mk).sum(), mk.sum()
+
+    total, count = local_map(
+        body, out_placements=(out_pl, out_pl),
+        in_placements=(l_pl, rows, rows)[:len(args)],
+        device_mesh=mesh_ctx.mesh, redistribute_inputs=True)(*args)
+    if mask is None:
+        return total / count
+    return total / count.clamp_min(1.0)

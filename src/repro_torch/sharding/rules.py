@@ -14,12 +14,16 @@ does:
 Every assignment is divisibility-checked against the mesh and each mesh
 axis is used at most once per tensor; dims that do not divide stay
 replicated. The rules return a ``PartitionSpec`` of this module (a tuple:
-one entry per dim, an axis name, a tuple of names, or None), and the
-"mesh" needs only a ``.shape`` mapping of axis name to size. The methods
-that would lower a tensor onto a mesh (``param_sharding``,
-``constrain_tree``, ``batch_sharding``, ``constrain_dims``, ``gather_seq``,
-``shard_activations``, ``cache_sharding``, ``replicated``) raise: the port
-has no mesh-sharded training (ROADMAP.md §1, item 6).
+one entry per dim, an axis name, a tuple of names, or None); for them the
+"mesh" needs only its axis sizes (a ``.shape`` mapping of axis name to
+size will do). The methods that lower a tensor onto a mesh
+(``param_sharding``, ``constrain_tree``, ``batch_sharding``,
+``constrain_dims``, ``gather_seq``, ``shard_activations``,
+``cache_sharding``, ``replicated``) need a
+``torch.distributed.device_mesh.DeviceMesh``, one process a rank: a
+``PartitionSpec`` becomes DTensor placements (``MeshContext.placements``)
+and a sharding constraint a ``redistribute``. This is SPMD, where the
+reference is single-controller: each process holds its own shards.
 
 ``KVShardCtx`` is the serve plane's tensor parallelism on
 ``torch.distributed``: one process per rank, each running the same engine
@@ -32,15 +36,16 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-import tempfile
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
-from ..models.common import ModelConfig, ParamSpec
+from ..models.common import ModelConfig, ParamSpec, meta_dtensor, tree_map
 
 # logical axis -> candidate physical axis group, in priority order
 LOGICAL_RULES: Dict[str, Tuple[str, ...]] = {
@@ -74,13 +79,6 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
-def _mesh_needed(what: str):
-    raise NotImplementedError(
-        f"MeshContext.{what} lowers tensors onto a device mesh, which the "
-        "port does not have yet (ROADMAP.md §1, item 6); the rules "
-        "(param_pspec, batch_pspec, cache_pspec) need only the mesh's shape")
-
-
 @dataclass
 class MeshContext:
     """The partition rules over a mesh's axis sizes (``mesh.shape``)."""
@@ -93,7 +91,12 @@ class MeshContext:
 
     # ------------------------------------------------------------------ sizes
     def axis_size(self, name: str) -> int:
-        return self.mesh.shape[name] if self.mesh else 1
+        if self.mesh is None:
+            return 1
+        names = getattr(self.mesh, "mesh_dim_names", None)
+        if names is not None:               # a DeviceMesh
+            return self.mesh.size(tuple(names).index(name))
+        return self.mesh.shape[name]        # a mapping of axis sizes
 
     @property
     def dp_size(self) -> int:
@@ -210,30 +213,233 @@ class MeshContext:
             dims.pop()
         return P(*dims)
 
-    # ---------------------------------------- lowering onto a mesh (item 6)
-    def param_sharding(self, spec: ParamSpec):
-        _mesh_needed("param_sharding")
+    # --------------------------------------------- lowering onto a mesh
+    # Each method mirrors the reference's, with a DTensor placement where
+    # the reference has a NamedSharding and ``redistribute`` where it has
+    # ``with_sharding_constraint``: the collectives XLA's partitioner
+    # would insert (the FSDP all-gather and its backward reduce-scatter,
+    # the SP all-gather and reduce-scatter) are DTensor's. Without a mesh
+    # each returns its input unchanged (or None), as the reference's do.
+
+    def _mesh_dims(self) -> Tuple[str, ...]:
+        """The mesh's dim names; a mesh that has only axis sizes (no
+        ``DeviceMesh``) cannot lower a tensor, and raises."""
+        names = getattr(self.mesh, "mesh_dim_names", None)
+        if names is None:
+            raise TypeError(
+                "lowering onto a mesh needs a torch.distributed "
+                "DeviceMesh; this context's mesh has only axis sizes (the "
+                "rules, param_pspec, batch_pspec and cache_pspec, need no "
+                "more)")
+        return tuple(names)
+
+    def placements(self, spec: Sequence) -> List[Placement]:
+        """DTensor placements, one a mesh dim, of a ``PartitionSpec``: mesh
+        dim ``i`` is ``Shard(t)`` when tensor dim ``t`` names its axis,
+        alone or in a tuple, else ``Replicate()``. A tuple shards one
+        tensor dim over several mesh dims, the first named the major one,
+        as in JAX; DTensor splits a dim over its mesh dims in mesh order,
+        so the tuple's axes must come in that order."""
+        names = self._mesh_dims()
+        out: List[Placement] = [Replicate()] * len(names)
+        for t, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            idx = [names.index(a) for a in axes]
+            if idx != sorted(idx):
+                raise ValueError(
+                    f"{entry!r} shards one dim over mesh axes out of the "
+                    f"mesh's order {names}: the major axis must come first")
+            for i in idx:
+                if not isinstance(out[i], Replicate):
+                    raise ValueError(f"mesh axis {names[i]!r} used twice "
+                                     f"in {spec!r}")
+                out[i] = Shard(t)
+        return out
+
+    def meta(self, shape: Sequence[int], dtype: torch.dtype,
+             placements: Sequence[Placement]) -> DTensor:
+        """A DTensor of global ``shape`` laid out by ``placements`` whose
+        local shard is a meta tensor of this rank's shape."""
+        return meta_dtensor(shape, dtype, self.mesh, placements)
+
+    def distribute(self, t: torch.Tensor,
+                   placements: Sequence[Placement]) -> DTensor:
+        """``t``, the same full tensor on every rank, as a DTensor: each
+        rank keeps a view of its own shard (so ``t``'s storage stays, and
+        nothing is copied where the shard is the whole), with no
+        collective. A tensor dim sharded over several mesh dims splits
+        over them in mesh order, as ``distribute_tensor`` splits it."""
+        local = t
+        coord = self.mesh.get_coordinate()
+        for i, pl in enumerate(placements):
+            if isinstance(pl, Shard):
+                n = local.shape[pl.dim] // self.mesh.size(i)
+                local = local.narrow(pl.dim, coord[i] * n, n)
+        return DTensor.from_local(local, self.mesh, placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def _redistribute(self, t, placements: Sequence[Placement]):
+        if not isinstance(t, DTensor):
+            raise TypeError(f"a tensor on a mesh must be a DTensor, got "
+                            f"{type(t).__name__}")
+        if tuple(t.placements) == tuple(placements):
+            return t
+        return t.redistribute(self.mesh, placements)
+
+    def param_sharding(self, spec: ParamSpec) -> Optional[List[Placement]]:
+        if self.mesh is None:
+            return None
+        return self.placements(self.param_pspec(spec))
 
     def constrain_tree(self, tree, spec_tree, fsdp: Optional[bool] = None):
-        _mesh_needed("constrain_tree")
+        """Redistribute a (possibly per-layer-sliced) param tree to its
+        rule-derived placements. Used per sublayer with ``fsdp=False``:
+        the redistribution all-gathers each layer's weights over the FSDP
+        axes in their stored dtype (bf16) right before use, and its
+        backward reduce-scatters the weight gradients back, so they never
+        materialize replicated."""
+        if self.mesh is None:
+            return tree
+        self._mesh_dims()
+        return tree_map(
+            lambda t, s: self._redistribute(
+                t, self.placements(self.param_pspec(s, fsdp=fsdp))),
+            tree, spec_tree)
 
     def batch_sharding(self, shape, dtype=torch.int32):
-        _mesh_needed("batch_sharding")
+        """A meta DTensor of ``shape`` laid out by ``batch_pspec`` (a meta
+        tensor of ``shape`` without a mesh)."""
+        if self.mesh is None:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return self.meta(shape, dtype, self.placements(
+            self.batch_pspec(tuple(shape))))
+
+    def dims_pspec(self, shape: Sequence[int], dims) -> PartitionSpec:
+        """``constrain_dims``'s spec: one axis-group candidate per dim;
+        non-divisible dims fall back to replicated."""
+        used: set = set()
+        out = []
+        for size, cand in zip(shape, dims):
+            if cand is None:
+                out.append(None)
+                continue
+            cands = cand if isinstance(cand, tuple) else (cand,)
+            out.append(self._dim_axes(size, cands, used))
+        return P(*out)
 
     def constrain_dims(self, x, dims):
-        _mesh_needed("constrain_dims")
+        """Megatron-SP style explicit layout: ``dims`` is one axis-group
+        candidate (axis name, tuple of names, or None) per tensor dim;
+        non-divisible dims fall back to replicated. Examples:
+          MLP intermediate (B,S,2,f): (data_axes, None, None, model)
+          q after projection (B,S,H,D): (data_axes, None, model, None)
+        """
+        if self.mesh is None:
+            return x
+        return self._redistribute(
+            x, self.placements(self.dims_pspec(x.shape, dims)))
 
     def gather_seq(self, x):
-        _mesh_needed("gather_seq")
+        """Enter a TP region: batch stays on the data axes, sequence (and
+        everything else) gathered — the SP all-gather on layer entry."""
+        if self.mesh is None:
+            return x
+        return self.constrain_dims(x, (self.data_axes,)
+                                   + (None,) * (x.ndim - 1))
 
     def shard_activations(self, h):
-        _mesh_needed("shard_activations")
+        """Residual-stream layout: (B, S, d) -> batch over data axes, seq
+        over model (SP). Non-divisible dims stay replicated. A partial sum
+        (a row-parallel product's output) reduce-scatters into it."""
+        if self.mesh is None:
+            return h
+        return self._redistribute(
+            h, self.placements(self.batch_pspec(tuple(h.shape))))
 
     def cache_sharding(self, path, shape, dtype):
-        _mesh_needed("cache_sharding")
+        """A meta DTensor of a decode-cache leaf laid out by
+        ``cache_pspec`` (a meta tensor without a mesh)."""
+        if self.mesh is None:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        self._mesh_dims()
+        return self.meta(shape, dtype, self.placements(
+            self.cache_pspec(tuple(path), tuple(shape))))
 
-    def replicated(self):
-        _mesh_needed("replicated")
+    def replicated(self) -> Optional[List[Placement]]:
+        if self.mesh is None:
+            return None
+        return [Replicate()] * len(self._mesh_dims())
+
+    # ------------------------------------------------ the model axis' group
+    def model_dim(self) -> int:
+        """The mesh dim of the model axis."""
+        return tuple(self.mesh.mesh_dim_names).index(self.model_axis)
+
+    def model_rank(self) -> int:
+        """This rank's coordinate along the model axis."""
+        return self.mesh.get_local_rank(self.model_axis)
+
+    def model_group(self):
+        """The process group of this rank's model axis."""
+        return self.mesh.get_group(self.model_axis)
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """The functional all-reduce of ``x`` over ``group`` (a new tensor),
+    waited on."""
+    return funcol.wait_tensor(funcol.all_reduce(x, op, group))
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Forward: the sum over the group, the same on every rank. Backward:
+    the identity, since every rank's consumer of the sum is the same (the
+    Megatron ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Forward: the identity on a tensor every rank of the group holds
+    whole. Backward: the sum of the ranks' gradients, each rank having
+    used the tensor for its own share of the work (the Megatron ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (an all-reduce; a no-op without a
+    group), differentiable: the reference's ``psum`` inside ``shard_map``
+    for an output every rank then uses whole."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as is, with its gradient summed over ``group`` (a no-op
+    without a group): an input every rank of the group holds whole and
+    uses for its own share of the work."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (not differentiable;
+    ``x`` itself without a group)."""
+    return x if group is None else _all_reduce(x, "max", group)
 
 
 def local_context() -> MeshContext:
@@ -344,13 +550,8 @@ def serve_tp_context(tp: int, device=None) -> KVShardCtx:
                 f"--tp {tp} needs {tp} ranks but the process group has "
                 f"{n}")
     elif tp == 1:
-        with tempfile.NamedTemporaryFile(prefix="repro-tp-",
-                                         delete=False) as f:
-            path = f.name
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            store=dist.FileStore(path, 1), rank=0, world_size=1,
-            timeout=GROUP_TIMEOUT)
+        from ..launch.ranks import init_local_group
+        init_local_group(dev.type, GROUP_TIMEOUT.total_seconds())
     else:
         raise ValueError(
             f"--tp {tp} needs {tp} ranks but no process group is "

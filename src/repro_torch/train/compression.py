@@ -39,9 +39,10 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def ef_init(params) -> Any:
     """Error-feedback residual buffers (fp32, one per parameter, on its
-    device)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    device, laid out as it)."""
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def compress_grads(grads, ef_state):

@@ -69,8 +69,9 @@ def adamw_init(params, oc: Optional[OptConfig] = None) -> Dict[str, Any]:
     mdt = getattr(torch, oc.moments_dtype if oc else "float32")
     first = next(t for _, t in tree_paths(params))
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+    def zeros(p):       # laid out as p (a DTensor's placements too)
+        return torch.zeros_like(p, dtype=mdt,
+                                memory_format=torch.contiguous_format)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 

@@ -463,6 +463,58 @@ def test_flash_kernel_masks_match_plain(dev, case, dtype, atol):
             r.float().abs().max().item(), 1e-30)
 
 
+# (B, Sq, Skv, H, KV, D, window, softcap, prefix_len, q_offset), causal:
+# the mesh path's context-parallel rows [q_offset, q_offset + Sq) against
+# every key — offset 0 with fewer rows than keys (the first model rank), a
+# ragged row tile past the diagonal, a window with a softcap, a prefix,
+# and the last rank of a 4-way split ending at the last key
+FLASH_OFFSET_CASES = [
+    (2, 64, 256, 4, 2, 64, None, None, 0, 0),
+    (2, 64, 200, 4, 2, 64, None, None, 0, 136),
+    (1, 100, 300, 4, 1, 128, 64, 30.0, 0, 150),
+    (1, 96, 256, 8, 1, 256, None, None, 100, 160),
+    (1, 128, 512, 28, 4, 128, None, None, 0, 384),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES)
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+def test_flash_kernel_q_offset_matches_plain(dev, case, dtype, atol):
+    """K3 at a query offset against its plain version under the bars of
+    ``test_flash_kernel_masks_match_plain``, and against the rows of the
+    plain version's call on every query."""
+    B, Sq, Skv, H, KV, D, window, softcap, prefix, off = case
+    rng = np.random.default_rng(Sq + Skv + off)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(dev, getattr(torch, dtype)) for s in
+               [(B, Skv, H, D), (B, Skv, KV, D), (B, Skv, KV, D)])
+    kw = dict(causal=True, window=window, softcap=softcap,
+              prefix_len=prefix)
+    rows = q[:, off:off + Sq].contiguous()
+    before = flash_attention.launches
+    got, klse = flash_attention_forward(rows, k, v, q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, lse = flash_attention_plain(rows, k, v, q_offset=off, **kw)
+    whole, whole_lse = flash_attention_plain(q, k, v, **kw)
+    lse_tol = 1e-4 if dtype == "float32" else 1e-3
+    for w, wl in ((want, lse), (whole[:, off:off + Sq],
+                                whole_lse[:, :, off:off + Sq])):
+        assert (got.float() - w.float()).abs().max().item() <= atol
+        assert (klse - wl).abs().max().item() <= lse_tol
+    dout = torch.randn(got.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(q.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (rows, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, q_offset=off, **kw),
+                                leaves, dout)
+    ref = flash_attention_bwd_plain(rows, k, v, want, lse, dout,
+                                    q_offset=off, **kw)
+    for g, r in zip(grads, ref):
+        assert (g.float() - r.float()).abs().max().item() <= 2e-2 * max(
+            r.float().abs().max().item(), 1e-30)
+
+
 def test_flash_wrapper_raises_on_masks_kernel_does_not_take(dev):
     q, k, v = (torch.zeros(s, device=dev) for s in
                [(1, 37, 2, 64), (1, 100, 2, 64), (1, 100, 2, 64)])
@@ -473,6 +525,10 @@ def test_flash_wrapper_raises_on_masks_kernel_does_not_take(dev):
         flash_attention(q, k, v, causal=True, prefix_len=10)
     with pytest.raises(ValueError, match="prefix_len"):
         flash_attention(q, q, q, prefix_len=-1)
+    with pytest.raises(ValueError, match="run past"):
+        flash_attention(q, k, v, causal=True, q_offset=64)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, v, causal=True, q_offset=-1)
     assert flash_attention.launches == before
 
 

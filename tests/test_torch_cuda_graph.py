@@ -15,6 +15,7 @@ card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_graph.py
 """
+import ctypes
 import sys
 
 import numpy as np
@@ -243,3 +244,35 @@ def test_moe_route_captures_and_replays(dev, dtype):
                                  x.reshape(-1, cfg.d_model))
         assert torch.equal(ids, want_ids)
         assert torch.equal(out, want)
+
+
+def test_graph_kernels_counts_a_child_graphs_kernels(dev):
+    """``step_graph.graph_kernels`` reads a child-graph node (type 4,
+    ``CU_GRAPH_NODE_TYPE_GRAPH``) and counts the kernels inside it: a
+    graph of one captured kernel, given a child graph of three through
+    libcuda's ``cuGraphAddChildGraphNode``, counts four, the child's by
+    their names."""
+    x = torch.zeros(1024, device=dev)
+    x.add_(1.0)
+    x.mul_(2.0)
+    torch.cuda.synchronize()
+    child = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(child):
+        x.add_(1.0)
+        x.mul_(2.0)
+        x.add_(3.0)
+    parent = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(parent):
+        x.mul_(2.0)
+    own = step_graph.graph_kernels(parent.raw_cuda_graph())
+    inner = step_graph.graph_kernels(child.raw_cuda_graph())
+    assert sum(own.values()) == 1 and sum(inner.values()) == 3
+    cu = ctypes.CDLL("libcuda.so.1")
+    node = ctypes.c_void_p()
+    assert cu.cuGraphAddChildGraphNode(
+        ctypes.byref(node), ctypes.c_void_p(parent.raw_cuda_graph()), None,
+        ctypes.c_size_t(0), ctypes.c_void_p(child.raw_cuda_graph())) == 0
+    kind = ctypes.c_int()
+    assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+    assert kind.value == step_graph._CHILD_GRAPH_NODE == 4
+    assert step_graph.graph_kernels(parent.raw_cuda_graph()) == own + inner

@@ -62,6 +62,8 @@ COPIES = [
     "sim/__init__.py", "serve/reference.py",
     # the tier ladder's framework-free modules
     "serve/disk_pool.py", "serve/tiered.py",
+    # the dry run's collective wire formulas
+    "launch/hlo_analysis.py",
 ]
 
 REF = SimpleNamespace(core=repro.core, coordination=repro.core.coordination,

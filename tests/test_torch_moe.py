@@ -5,9 +5,9 @@ index as ``jax.lax.top_k`` breaks them), the layer against ``_moe_local``,
 ``forward`` and ``decode_step`` on the moonshot_v1_16b_a3b and
 llama4_maverick_400b_a17b smoke configs (2e-4), the paged ``ServeEngine``
 on moonshot smoke against the reference's engine (tokens, eviction log
-and ``metrics()`` identical), the launcher's printed metrics, and the
-expert-parallel branch raising."""
-from types import SimpleNamespace
+and ``metrics()`` identical) and the launcher's printed metrics. The
+expert-parallel branch is held to the reference's in
+``tests/test_torch_mesh.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -126,21 +126,6 @@ def test_moe_matches_reference(models, arch):
                          torch.from_numpy(x.reshape(-1, jcfg.d_model))),
            JM._moe_local(jcfg, prm, jnp.asarray(x.reshape(-1, jcfg.d_model))),
            what="_moe_local")
-
-
-def test_moe_mesh_branch_raises(models):
-    _, tcfg, np_params, _ = models["moonshot_v1_16b_a3b"]
-    prm = params_from_numpy(_moe_params(np_params))
-    x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        TM.moe(tcfg, prm, x, mesh_ctx=SimpleNamespace(mesh=object()))
-    # a context without a mesh is the single-device path, as in the
-    # reference
-    assert TM.moe(tcfg, prm, x, mesh_ctx=SimpleNamespace(mesh=None)).shape \
-        == x.shape
-
-
-# ------------------------------------------------------ forward / decode
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -594,23 +594,35 @@ def test_cache_pspec_recurrent_states():
 
 
 def test_local_context_and_mesh_lowering_refused():
-    """``local_context`` has no mesh (every axis of size 1); the methods
-    that would lower onto a mesh raise, naming what waits for them."""
+    """``local_context`` has no mesh (every axis of size 1), and its
+    lowering methods return their input unchanged, as the reference's do
+    (the mesh path's own lowering is tests/test_torch_mesh.py's). A mesh
+    of axis sizes only (no ``DeviceMesh``) serves the rules but refuses
+    every lowering method."""
     c = local_context()
     assert c.mesh is None and c.tp_size == 1 and c.dp_size == 1
     p, j = _specs((8192, 64, 128), ("embed", "heads", "head_dim"))
     _same(c.param_pspec(p), repro.sharding.local_context().param_pspec(j),
           JP())
+    x = torch.zeros(2, 4)
+    assert c.param_sharding(p) is None and c.replicated() is None
+    assert c.constrain_tree({"w": x}, {"w": p})["w"] is x
+    for fn in (c.gather_seq, c.shard_activations,
+               lambda t: c.constrain_dims(t, ("data", None))):
+        assert fn(x) is x
+    for t in (c.batch_sharding((2, 4)),
+              c.cache_sharding(("k",), (1, 2), torch.bfloat16)):
+        assert t.device.type == "meta"
     mc, _ = _ctxs()
     for call in (lambda: mc.param_sharding(p),
                  lambda: mc.constrain_tree({}, {}),
                  lambda: mc.batch_sharding((2, 4)),
-                 lambda: mc.constrain_dims(None, ()),
-                 lambda: mc.gather_seq(None),
-                 lambda: mc.shard_activations(None),
+                 lambda: mc.constrain_dims(x, ("data", None)),
+                 lambda: mc.gather_seq(x),
+                 lambda: mc.shard_activations(x),
                  lambda: mc.cache_sharding(("k",), (1,), None),
                  mc.replicated):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
 
 
