@@ -200,22 +200,34 @@ exits non-zero:
              times the meshless step's, layer 0's EP call equal bit for
              bit to the same call with no group; ms a step, peak memory
              and the assignments capacity dropped in each layer. Then
-             qwen2-7b at full width cut to 4 layers, 3 steps meshless and
-             3 on the mesh from one state (losses within
-             ``TRAIN_LOSS_RTOL``, equal K3 launches), and 16 prompt and
-             16 greedy tokens of 8 rows through ``decode_step`` with and
-             without the mesh (identical tokens, equal K2 launches);
-             then the dry-run cell (moonshot's train_4k on the 512-rank
-             multi-pod mesh, a fake group) started in a subprocess at the
-             run's beginning: its per-rank bytes and ``hbm_frac``. The
-             kernel phase also holds K3 at a query offset (the
-             context-parallel rows of one model rank) to its plain
-             version and times it at one rank of qwen2-7b's prefill_32k
-             beside SDPA with the same boolean mask and the bound.
-13. the walls line (each phase's seconds), the kernels line (K1's, K2's and K3's launches on each of their
-             paths under ``launches_by_path``, K1's on the TP path
-             among them), the card line, and the
-             result line.
+             each family meshless beside mesh, each run from the state
+             seed 0 makes (losses within ``TRAIN_LOSS_RTOL``, K3, K4 and
+             K5 launches equal to the meshless run's and to the layout's):
+             qwen2-7b cut to 4 layers (3 steps), recurrentgemma-9b cut to
+             5 layers and rwkv6-3b cut to 4 (2 steps each), all at batch
+             2 x 4096, and whole whisper-base (2 steps at batch 8 x (1500
+             frames, 448 tokens)); each then decodes 16 prompt and 16
+             greedy tokens of 8 rows through ``decode_step`` with and
+             without the mesh at the trained weights (identical tokens,
+             equal K2 and K3 launches; a (1, 1) mesh shards no
+             sequence, so the kernel phase checks the merge). Then the
+             dry-run cells started in subprocesses at the run's beginning
+             (moonshot's train_4k on the 512-rank multi-pod mesh;
+             recurrentgemma-9b's and whisper-base's decode_32k on the
+             256-rank mesh, a fake group): their per-rank bytes and
+             ``hbm_frac``. The kernel phase also holds K3 at a query
+             offset (the context-parallel rows of one model rank) to its
+             plain version and times it at one rank of qwen2-7b's
+             prefill_32k beside SDPA with the same boolean mask and the
+             bound; and K2's log-sum-exp output to its plain version (at
+             the gather shapes and recurrentgemma's L layer, K2 timed
+             with and without it), and the merge of K2 on the two halves
+             of one qwen2-7b decode_32k row block's keys to K2 over the
+             whole cache, timed.
+13. the walls line (each phase's seconds), the kernels line (each
+             kernel's launches on each of its paths under
+             ``launches_by_path``, K1's on the TP path and K2-K5's on the
+             mesh paths among them), the card line, and the result line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a path whose kernel was never launched fails. In the kernels
@@ -280,7 +292,7 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  rglru_scan_bwd_plain, rglru_scan_plain,
                                  rglru_scan_reverse, rwkv6_wkv,
                                  rwkv6_wkv_chunked, rwkv6_wkv_forward,
-                                 rwkv6_wkv_plain)
+                                 rwkv6_wkv_plain, merge_partials)
 from repro_torch.models import (decode_step, encdec_prefill_cache,  # noqa
                                 encode, forward, init_decode_cache,
                                 init_params, lm_decode_step, loss_fn,
@@ -372,6 +384,26 @@ WHISPER_DECODE = {
                          valid=[448, 1, 100, 300, 17, 448, 64, 250]),
     "whisper_cross": dict(B=8, S=1500, H=8, KV=8, D=64, valid=[1500] * 8),
 }
+# K2's log-sum-exp (fp32, of scores up to some 60: softcap 50 plus the
+# log of the keys) against its plain version: the kernel's fast softcap
+# (within about 1e-7 x 50 a score) and its own summation order
+LSE_ATOL = 1e-3
+# K2's log-sum-exp at the gather shapes (the S=128 row that sees nothing
+# gives -inf) and recurrentgemma's L layer, (case, softcap)
+LSE_CASES = {
+    "S128": (dict(B=8, S=128, H=32, KV=16, D=128,
+                  valid=[80, 128, 1, 96, 33, 64, 127, 0]), 50.0),
+    "S4096": (dict(B=8, S=4096, H=32, KV=16, D=128, valid=[4096] * 8),
+              50.0),
+    "recurrentgemma_L": (RG_DECODE, None),
+}
+# the two-halves merge at one row block of qwen2-7b's decode_32k (B=8 of
+# its 128 rows, the 32,768-slot cache, 28 heads over 4 KV heads): rows
+# full, one ending inside the first half, one at the halves' border, one
+# that sees one key
+MERGE_DECODE = dict(B=8, S=32768, H=28, KV=4, D=128,
+                    valid=[32768, 32768, 20000, 16384, 100, 32768, 30000,
+                           1])
 # f32: kernel and plain version both sum in fp32, in different orders
 F32_ATOL = 1e-4
 # bf16: both round an fp32 result below 2 in magnitude to bf16 (one ulp
@@ -798,8 +830,105 @@ def decode_kernel_phase(dev) -> dict:
         model_shapes[name] = t
     emit("kernel_check", name="decode_attention", max_abs_err=errs,
          f32_atol=F32_ATOL, bf16_atol=BF16_ATOL)
+    lse = decode_lse_phase(dev, flush)
     return {"max_abs_err": max(errs.values()), **timings[128],
-            "S4096": timings[4096], **model_shapes}
+            "S4096": timings[4096], **model_shapes, "lse": lse}
+
+
+def decode_lse_phase(dev, flush) -> dict:
+    """K2's log-sum-exp output: held to its plain version in f32 and bf16
+    at ``LSE_CASES`` (the output with it equal bit for bit to the output
+    without it; -inf where a row sees no key), and K2 timed with and
+    without it at the PERF shapes' valid lengths. Then the mesh path's
+    merge on one card: at ``MERGE_DECODE`` K2 runs on the two halves of
+    the keys (each row's valid length clipped to its half) and
+    ``merge_partials`` merges them, held to K2 over the whole cache within
+    the bf16 bar; the merge, the two halves and the whole call timed."""
+    out = {}
+    for name, (c, softcap) in LSE_CASES.items():
+        dims = [c[x] for x in ("B", "S", "H", "KV", "D")]
+        errs = {}
+        for dtype, atol in ((torch.float32, F32_ATOL),
+                            (torch.bfloat16, BF16_ATOL)):
+            args = decode_inputs(*dims, c["valid"], dtype, dev,
+                                 seed=300 + c["S"])
+            got, lse = decode_attention(*args, softcap=softcap,
+                                        return_lse=True)
+            alone = decode_attention(*args, softcap=softcap)
+            want, want_lse = decode_attention_plain(*args, None, softcap,
+                                                    return_lse=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, alone), name
+            seen = torch.isfinite(want_lse)
+            assert torch.equal(torch.isfinite(lse), seen), name
+            err = (got.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse)[seen].abs().max().item()
+            assert err <= atol and lse_err <= LSE_ATOL, (name, dtype, err,
+                                                         lse_err)
+            errs[str(dtype).split(".")[-1]] = {"max_abs_err": err,
+                                               "lse_max_abs_err": lse_err}
+        # timed at the valid lengths the PERF table's K2 times are taken at
+        valid = ([80, 128, 1, 96, 33, 64, 127, 5] if name == "S128"
+                 else RG_DECODE["valid"] if name == "recurrentgemma_L"
+                 else c["valid"])
+        args = decode_inputs(*dims, valid, torch.bfloat16, dev,
+                             seed=c["S"] + 1)
+        t = {"kernel_ms": time_ms(lambda: decode_attention(
+                 *args, softcap=softcap), 50, flush),
+             "lse_kernel_ms": time_ms(lambda: decode_attention(
+                 *args, softcap=softcap, return_lse=True), 50, flush),
+             "kernel_ms_again": time_ms(lambda: decode_attention(
+                 *args, softcap=softcap), 50, flush)}
+        emit("kernel", name="decode_attention_lse", dtype="bfloat16",
+             shape={k: c[k] for k in ("B", "S", "H", "KV", "D")},
+             softcap=softcap, checked_valid_len=c["valid"],
+             timed_valid_len=valid, checks=errs, lse_atol=LSE_ATOL, **t)
+        out[name] = {**t, "checks": errs}
+
+    c = MERGE_DECODE
+    B, S, H, KV, D = (c[x] for x in ("B", "S", "H", "KV", "D"))
+    q, k, v, valid = decode_inputs(B, S, H, KV, D, c["valid"],
+                                   torch.bfloat16, dev, seed=32768)
+    half = S // 2
+    parts = [(q, k[:, r * half:(r + 1) * half].contiguous(),
+              v[:, r * half:(r + 1) * half].contiguous(),
+              (valid.long() - r * half).clamp(0, half).int())
+             for r in range(2)]
+
+    def halves():
+        return [decode_attention(*a, return_lse=True) for a in parts]
+
+    res = halves()
+    outs = torch.stack([o for o, _ in res])
+    lses = torch.stack([lse for _, lse in res])
+    merged, merged_lse = merge_partials(outs, lses)
+    whole, whole_lse = decode_attention(q, k, v, valid, return_lse=True)
+    torch.cuda.synchronize()
+    err = (merged.float() - whole.float()).abs().max().item()
+    lse_err = (merged_lse - whole_lse).abs().max().item()
+    assert err <= BF16_ATOL and lse_err <= LSE_ATOL, (err, lse_err)
+    # the merge reads two (B, H, D) bf16 partials and two (B, H) fp32
+    # log-sum-exps and writes one of each
+    nbytes = 3 * B * H * D * 2 + 3 * B * H * 4
+    merge = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+             "merge_ms": time_ms(lambda: merge_partials(outs, lses), 50,
+                                 flush),
+             "merge_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "merge_bound_by": "bytes",
+             "halves_ms": time_ms(halves, 20, flush),
+             "whole_ms": time_ms(lambda: decode_attention(q, k, v, valid),
+                                 20, flush),
+             "split_plans": [decode_attention_mod._plan(
+                 B, n, H, KV, D, -1, torch.bfloat16, dev.index or 0)
+                 for n in (half, S)]}
+    emit("decode_merge", what="K2 on the two halves of one qwen2-7b "
+         "decode_32k row block's keys, merged by merge_partials, against "
+         "K2 over the whole cache", shape={"B": B, "S": S, "H": H,
+                                           "KV": KV, "D": D},
+         dtype="bfloat16", valid_len=c["valid"], atol=BF16_ATOL,
+         lse_atol=LSE_ATOL, **merge)
+    out["merge_qwen2_decode_32k"] = merge
+    return out
 
 
 def visible(Sq, Skv, causal=True, window=None, prefix_len=0, q_offset=None):
@@ -1266,14 +1395,25 @@ def named(kernel, by_name) -> int:
                if any(k in name for k in KERNEL_NAMES[kernel]))
 
 
-def traced_kernel(prof, kernel) -> tuple:
-    """(runs, device ms) of ``kernel``'s device kernel in a finished
-    torch.profiler run, CUDA activity (a graph's kernels are recorded as
-    kernels)."""
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (named(kernel, {e.key: e.count for e in events}),
-            named(kernel, {e.key: e.self_device_time_total / 1e3
-                           for e in events}))
+def kernel_table(prof) -> dict:
+    """{kernel name: (runs, device ms)} of a finished torch.profiler run,
+    CUDA activity (a graph's kernels are recorded as kernels), from one
+    pass over its averages (each pass over a full-depth model's trace
+    takes seconds of host time)."""
+    table = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            runs, ms = table.get(e.key, (0, 0.0))
+            table[e.key] = (runs + e.count,
+                            ms + e.self_device_time_total / 1e3)
+    return table
+
+
+def traced_kernel(table, kernel) -> tuple:
+    """(runs, device ms) of ``kernel``'s device kernel in a
+    ``kernel_table``."""
+    return (named(kernel, {k: n for k, (n, _) in table.items()}),
+            named(kernel, {k: ms for k, (_, ms) in table.items()}))
 
 
 def timed_serve(cfg, params, dev, prompts, kernel, cuda_graphs, **kw):
@@ -1323,16 +1463,18 @@ def assert_same_run(a, b) -> None:
 
 
 def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
-                  steps=32) -> None:
+                  steps=32, profiled=8) -> None:
     """8 slots all decoding, captured beside eager: ms a step by host
     clock over ``steps`` steps once the decode signature has been captured
     (the captured engine's first sight and capture of it come before),
-    then device busy and idle share of ``steps`` more under
+    then device busy and idle share of ``profiled`` more under
     torch.profiler, CUDA activity (a graph's kernels are recorded as
     kernels), with the attention kernel's launches in those steps
     (``n_layers`` a step: the wrapper's eagerly, the graph's nodes
     captured), and its runs and device ms in the trace. Both engines must
-    have generated the same tokens."""
+    have generated the same tokens. (Reading a trace is host time in
+    torch.profiler's parse: 32 eager steps of full-depth gemma2-27b took
+    33 s to read on an H100 machine, 8 take a quarter of that.)"""
     prompts = shared_prefix_prompts(cfg.vocab, 8, 8, prompt, 0, seed=3)
     kernel = "paged_decode_attention" if paged else "decode_attention"
     out, tokens = {}, []
@@ -1340,7 +1482,8 @@ def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
         eng = ServeEngine(cfg, params, max_slots=8, max_seq=max_seq,
                           prefill_chunk=chunk, paged=paged, device=dev,
                           cuda_graphs=cuda_graphs)
-        reqs = [eng.submit(p, max_new=2 * steps + 8) for p in prompts]
+        reqs = [eng.submit(p, max_new=steps + profiled + 8)
+                for p in prompts]
         while not all(r.n_generated for r in reqs):
             eng.step()
         for _ in range(2):          # the decode signature: seen, captured
@@ -1358,7 +1501,7 @@ def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(profiled):
                 eng.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1366,20 +1509,22 @@ def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
         nodes = named(kernel, prog.replayed_kernels) - nodes
         # the profiled steps' launches: the wrapper's eagerly, the
         # graph's nodes captured, where no wrapper is called
-        assert calls + nodes == cfg.n_layers * steps, (kernel, calls, nodes)
+        assert calls + nodes == cfg.n_layers * profiled, (kernel, calls,
+                                                          nodes)
         assert (calls if prog.capture else nodes) == 0, (calls, nodes)
-        by_name = device_ms_by_kernel(prof)
+        table = kernel_table(prof)
+        by_name = device_ms_by_kernel(table)
         busy = sum(by_name.values())
         # the trace's own count, below the launches where it lost
         # records: 0 < runs <= launches
-        runs, kernel_ms = traced_kernel(prof, kernel)
-        assert 0 < runs <= cfg.n_layers * steps, (kernel, runs)
+        runs, kernel_ms = traced_kernel(table, kernel)
+        assert 0 < runs <= cfg.n_layers * profiled, (kernel, runs)
         assert all(r.n_generated < r.max_new for r in reqs)
         tokens.append([eng.drain(r) for r in reqs])
         out["captured" if prog.capture else "eager"] = {
             "ms_per_step": ms, "steps_replayed": prog.replays - replays,
             "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_ms_per_step": busy / steps,
+            "device_ms_per_step": busy / profiled,
             "device_idle_share": (1 - busy / wall_ms if busy else
                                   "not measured: the profiler recorded no "
                                   "device activity"),
@@ -1390,10 +1535,10 @@ def steady_decode(cfg, params, dev, *, paged, chunk, prompt, max_seq,
             "top_kernels": [[n[:80], t] for n, t in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:5]]}
         del eng, reqs
-    assert out["captured"]["steps_replayed"] == 2 * steps
+    assert out["captured"]["steps_replayed"] == steps + profiled
     assert tokens[0] == tokens[1]
     emit("steady_decode", config=cfg.arch, paged=paged, slots=8,
-         prompt_tokens=prompt, steps=steps, **out)
+         prompt_tokens=prompt, steps=steps, profiled_steps=profiled, **out)
 
 
 def counted(fn):
@@ -2246,14 +2391,9 @@ def _slice(tree, n):
             for k, v in tree.items()}
 
 
-def device_ms_by_kernel(prof) -> dict:
-    """{kernel name: device ms} of a finished torch.profiler run."""
-    by_name = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            by_name[e.key] = (by_name.get(e.key, 0.0)
-                              + e.self_device_time_total / 1e3)
-    return by_name
+def device_ms_by_kernel(table) -> dict:
+    """{kernel name: device ms} of a ``kernel_table``."""
+    return {k: ms for k, (_, ms) in table.items()}
 
 
 def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
@@ -2270,7 +2410,7 @@ def profile_serve(cfg, params, dev, prompts, kw, run, kernel,
                                cap_blocks=cap_blocks, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    by_name = device_ms_by_kernel(prof)
+    by_name = device_ms_by_kernel(kernel_table(prof))
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         emit("profile", config=cfg.arch, device_time="not measured: the "
@@ -2363,7 +2503,7 @@ def recurrent_decode_phase(dev) -> int:
             t0 = time.perf_counter()
             greedy_decode(cfg, params, dev, prompt[:, :1], 8, max_seq)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = device_ms_by_kernel(prof)
+        by_name = device_ms_by_kernel(kernel_table(prof))
         busy = sum(by_name.values())
         for path, t in tree_paths(cache):
             want = (torch.float32 if path[-1] in ("S", "h")
@@ -3219,7 +3359,7 @@ def profile_train(cfg, step_fn, state, batch, depth, kernels,
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    by_name = device_ms_by_kernel(prof)
+    by_name = device_ms_by_kernel(kernel_table(prof))
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         emit("profile", config=cfg.arch, device_time="not measured: the "
@@ -3486,9 +3626,10 @@ def sharded_serve_phase(dev) -> tuple:
         torch.cuda.synchronize()
         clean_ms = (time.time() - t0) * 1e3
     clean_fe.verify_replicas()
-    by_name = device_ms_by_kernel(prof)
+    table = kernel_table(prof)
+    by_name = device_ms_by_kernel(table)
     busy = sum(by_name.values())
-    runs, k1_ms = traced_kernel(prof, "paged_decode_attention")
+    runs, k1_ms = traced_kernel(table, "paged_decode_attention")
     clean_steps = sum(e.steps for e in clean_fe.shards)
     assert 0 < runs <= cfg.n_layers * clean_steps, (runs, clean_steps)
     crash_at = min(r.first_token_at for r in clean.requests
@@ -3878,7 +4019,7 @@ def encdec_phase(dev) -> dict:
         t0 = time.perf_counter()
         encdec_greedy(cfg, params, dev, frames, prompt[:, :1], 8, max_seq)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_ms_by_kernel(prof)
+    by_name = device_ms_by_kernel(kernel_table(prof))
     busy = sum(by_name.values())
     emit("encdec_decode", config="whisper_base full width and depth, bf16, "
          "trained weights (4 steps from seed 0)", batch=B,
@@ -3936,43 +4077,68 @@ def encdec_parity(dev) -> None:
 # train_4k on the 512-rank multi-pod mesh, one microbatch
 DRYRUN_CELL = ["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k",
                "--multi-pod", "--microbatches", "1"]
+# and, in a second subprocess beside it, two decode cells on the 256-rank
+# mesh: recurrentgemma-9b's (R state over the lru width, the rolling L
+# cache's sequence over the model axis) and whisper-base's (the self
+# cache's sequence over the model axis, 8 KV heads on 16 ranks)
+DRYRUN_DECODE_CELLS = [["--arch", "recurrentgemma-9b", "--shape",
+                        "decode_32k"],
+                       ["--arch", "whisper-base", "--shape", "decode_32k"]]
 DRYRUN_DEADLINE = 600
 
 
-def start_dryrun(out_dir: Path) -> tuple:
-    """The dry-run cell in a subprocess of its own (CPU only: a fake
-    process group, fake tensors), started now and read by
-    ``mesh_train_phase``."""
-    out = out_dir / "dryrun_moonshot_train_4k.json"
+def start_dryrun(out_dir: Path) -> list:
+    """The dry-run cells, each in a subprocess of its own (CPU only: a
+    fake process group, fake tensors), started now, all at once, and read
+    by ``mesh_train_phase``: the moonshot train cell, then the two decode
+    cells one after the other in a second subprocess."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"), CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL,
-         "--json", str(out)], env=env, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE)
-    # whatever ends the run ends the subprocess too
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, out
+    started = []
+    for name, cells in (("moonshot_train_4k", [DRYRUN_CELL]),
+                        ("decode_32k", DRYRUN_DECODE_CELLS)):
+        outs = [out_dir / f"dryrun_{name}_{i}.json"
+                for i in range(len(cells))]
+        cmd = " && ".join(
+            f"{sys.executable} -m repro_torch.launch.dryrun "
+            f"{' '.join(c)} --json {o}" for c, o in zip(cells, outs))
+        proc = subprocess.Popen(["/bin/sh", "-c", cmd], env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        # whatever ends the run ends the subprocess (and its children) too
+        atexit.register(lambda p=proc: p.poll() is None and os.killpg(
+            p.pid, signal.SIGKILL))
+        started.append((proc, cells, outs))
+    return started
 
 
 def finish_dryrun(started) -> None:
-    proc, out = started
-    try:
-        stdout, stderr = proc.communicate(timeout=DRYRUN_DEADLINE)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, stderr[-3000:]
-    (r,) = json.loads(out.read_text())
-    assert r["ok"] and r["devices"] == 512 and r["mesh"] == "2x16x16", r
-    mem = r["memory"]
-    assert 0 < mem["argument_bytes"] <= mem["peak_bytes"]
-    assert mem["temp_bytes"] is None and r["cost"]["bytes_accessed"] is None
-    emit("mesh_dryrun", command="python -m repro_torch.launch.dryrun "
-         + " ".join(DRYRUN_CELL), per_rank=mem, hbm_frac=r["hbm_frac"],
-         flops=r["cost"]["flops"], collectives=r["collectives"],
-         run_s=r["compile_s"], line=stdout.strip().splitlines()[0])
+    """Each dry-run subprocess's cells: ``ok``, their per-rank bytes and
+    ``hbm_frac``."""
+    for proc, cells, outs in started:
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_DEADLINE)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        assert proc.returncode == 0, stderr[-3000:]
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[ok]")]
+        for cell, out, line in zip(cells, outs, lines):
+            (r,) = json.loads(out.read_text())
+            multi = "--multi-pod" in cell
+            assert r["ok"] and r["devices"] == (512 if multi else 256), r
+            assert r["mesh"] == ("2x16x16" if multi else "16x16"), r
+            mem = r["memory"]
+            assert 0 < mem["argument_bytes"] <= mem["peak_bytes"]
+            assert mem["temp_bytes"] is None
+            assert r["cost"]["bytes_accessed"] is None
+            emit("mesh_dryrun", command="python -m repro_torch.launch."
+                 "dryrun " + " ".join(cell), per_rank=mem,
+                 hbm_frac=r["hbm_frac"], flops=r["cost"]["flops"],
+                 collectives=r["collectives"], run_s=r["compile_s"],
+                 line=line)
 
 
 def mesh_batch(mc, batch) -> dict:
@@ -3983,7 +4149,7 @@ def mesh_batch(mc, batch) -> dict:
 def mesh_train_steps(cfg, mc, state, batches, tc) -> tuple:
     """AdamW steps of ``state`` (DTensors on ``mc``'s mesh, or plain
     without ``mc``) on ``batches``, each timed; every launch counted.
-    Returns (steps, launches, peak bytes)."""
+    Returns (steps, launches, peak bytes, the final state)."""
     step_fn = build_train_step(cfg, tc, mc)
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -4008,7 +4174,7 @@ def mesh_train_steps(cfg, mc, state, batches, tc) -> tuple:
     _, launches = counted(run)
     for st in steps:
         assert math.isfinite(st["loss"]), steps
-    return steps, launches, torch.cuda.max_memory_allocated()
+    return steps, launches, torch.cuda.max_memory_allocated(), state
 
 
 def train_batches(cfg, dev, n) -> list:
@@ -4047,7 +4213,7 @@ def mesh_moonshot(dev, mc) -> dict:
     n_params = sum(t.numel() for _, t in tree_paths(state["params"]))
     batches = train_batches(cfg, dev, 4)
     init_s = time.time() - t0
-    _, one, _ = mesh_train_steps(cfg, None, state, batches[:1], tc)
+    _, one, _, _ = mesh_train_steps(cfg, None, state, batches[:1], tc)
     # a layer's forward, and again its checkpoint's recomputation
     assert one["flash_attention"] == 2 * cfg.n_layers, one
     state = shard_train_state(cfg, state, mc)
@@ -4055,8 +4221,8 @@ def mesh_moonshot(dev, mc) -> dict:
     model_moe.DROP_LOG = []
     try:
         with mock.patch.object(model_moe, "_moe_ep_device", rec):
-            steps, launches, peak = mesh_train_steps(cfg, mc, state,
-                                                     batches[1:], tc)
+            steps, launches, peak, _ = mesh_train_steps(
+                cfg, mc, state, batches[1:], tc)
     finally:
         model_moe.DROP_LOG = None
     assert launches["flash_attention"] == 3 * one["flash_attention"], (
@@ -4079,68 +4245,20 @@ def mesh_moonshot(dev, mc) -> dict:
     return {"meshless_step": one, "mesh_3_steps": launches}
 
 
-def mesh_qwen2(dev, mc) -> dict:
-    """qwen2-7b at full width cut to 4 layers: 3 steps meshless and 3 on
-    the (1, 1) mesh from one initial state (losses within
-    ``TRAIN_LOSS_RTOL``, K3 launches equal), then 16 prompt tokens and 16
-    greedy tokens of 8 rows through ``decode_step`` with and without the
-    mesh on the meshless run's weights (tokens and K2 launches equal)."""
-    cfg = configs.get("qwen2_7b").replace(n_layers=4)
-    tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
-    batches = train_batches(cfg, dev, 3)
-    init = make_train_state(cfg, tc, torch.Generator(
-        device=dev).manual_seed(0), dev)
-    copy = tree_map(lambda t: t.clone(), init)
-    plain_steps, plain_k, plain_peak = mesh_train_steps(
-        cfg, None, init, batches, tc)
-    mesh_state = shard_train_state(cfg, copy, mc)
-    steps, launches, peak = mesh_train_steps(cfg, mc, mesh_state, batches,
-                                             tc)
-    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-              for a, b in zip(steps, plain_steps))
-    assert rel <= TRAIN_LOSS_RTOL, (steps, plain_steps)
-    assert launches == plain_k, (launches, plain_k)
-    assert launches["flash_attention"] == 3 * 2 * cfg.n_layers, launches
-    del mesh_state, copy
-    gc.collect()
-    torch.cuda.empty_cache()
-    params = init["params"]
-    prompt = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab, (8, 16)).astype(np.int32)).to(dev)
-    runs = {}
-    for name, ctx in (("meshless", None), ("mesh", mc)):
-        (toks, ms), k = counted(lambda: mesh_greedy(cfg, params, dev,
-                                                    prompt, 16, ctx))
-        runs[name] = {"tokens": toks, "ms_a_step": ms, "launches": k}
-    assert runs["mesh"]["tokens"] == runs["meshless"]["tokens"], runs
-    assert runs["mesh"]["launches"] == runs["meshless"]["launches"]
-    # a K2 launch a layer a step: 16 prompt steps and 15 greedy (the
-    # last prompt step gives the first greedy token)
-    assert runs["mesh"]["launches"]["decode_attention"] == \
-        cfg.n_layers * (16 + 16 - 1), runs
-    emit("mesh_train", config="qwen2_7b full width (d_model 3584, 28 "
-         "heads, GQA kv=4, d_ff 18944, vocab 152064), 4 layers, bf16, "
-         "random weights (seed 0)", mesh="(1, 1) data=1 model=1, one NCCL "
-         "rank", batch=2, seq_len=4096, steps_meshless=plain_steps,
-         steps_mesh=steps, max_rel_loss_diff=rel, rtol=TRAIN_LOSS_RTOL,
-         launches_meshless=plain_k, launches_mesh=launches,
-         max_memory_allocated_meshless=plain_peak,
-         max_memory_allocated_mesh=peak,
-         decode={n: {k: v for k, v in r.items() if k != "tokens"}
-                 for n, r in runs.items()},
-         decode_tokens_equal=True, decode_rows=8, decode_prompt=16,
-         decode_new=16)
-    return {"train_3_steps": launches,
-            "decode_32_steps": runs["mesh"]["launches"]}
-
-
-def mesh_greedy(cfg, params, dev, prompt, new, mc) -> tuple:
+def mesh_greedy(cfg, params, dev, prompt, new, mc, frames=None) -> tuple:
     """``prompt`` (B, P) fed a token a step through ``decode_step`` at one
     shared position, then ``new`` greedy tokens; with ``mc`` on its mesh
-    (params, cache and tokens DTensors, views of the same tensors).
-    Returns (the greedy tokens, ms a step of the greedy part)."""
+    (params, cache and tokens DTensors, views of the same tensors). With
+    ``frames`` (the encoder-decoder) the cache is ``encdec_prefill_cache``
+    of the frames' encoding, made without the mesh. Returns (the greedy
+    tokens, ms a step of the greedy part)."""
     B, P = prompt.shape
-    cache = init_decode_cache(cfg, B, P + new, device=dev)
+    if frames is None:
+        cache = init_decode_cache(cfg, B, P + new, device=dev)
+    else:
+        with torch.no_grad():
+            cache = encdec_prefill_cache(cfg, params, encode(
+                cfg, params, frames), B, P + new)
     if mc is not None:
         params = tree_map(lambda t, s: mc.distribute(t, mc.param_sharding(
             s)), params, model_spec(cfg))
@@ -4174,10 +4292,121 @@ def mesh_greedy(cfg, params, dev, prompt, new, mc) -> tuple:
     return torch.cat(out, 1).cpu().tolist(), ms
 
 
+def mesh_family(dev, mc, cfg, batches, expect, config, frames=None,
+                expect_decode=None) -> dict:
+    """``cfg`` trained an AdamW step a batch of ``batches`` meshless and as
+    many on the (1, 1) mesh, each from the state seed 0 makes (made anew
+    for each run, so only one state is on the card at a time): losses
+    within ``TRAIN_LOSS_RTOL``, launches equal to the meshless run's and
+    ``expect`` a step. Then, at the mesh run's trained weights, 16 prompt
+    and 16 greedy tokens of 8 rows through ``decode_step`` with and
+    without the mesh (with ``frames``: the encoder-decoder's, 8 rows of
+    them): identical tokens, equal launches (``expect_decode`` a step
+    where given). ms a step and peak memory both ways. Returns the
+    launches of the mesh run's training and decode."""
+    tc = TrainConfig(opt=OptConfig(total_steps=4, warmup_steps=1))
+
+    def fresh():
+        return make_train_state(cfg, tc, torch.Generator(
+            device=dev).manual_seed(0), dev)
+
+    plain_steps, plain_k, plain_peak, state = mesh_train_steps(
+        cfg, None, fresh(), batches, tc)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, launches, peak, state = mesh_train_steps(
+        cfg, mc, shard_train_state(cfg, fresh(), mc), batches, tc)
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(steps, plain_steps))
+    assert rel <= TRAIN_LOSS_RTOL, (steps, plain_steps)
+    assert launches == plain_k, (launches, plain_k)
+    want = {k.__name__: expect.get(k.__name__, 0) * len(batches)
+            for k in COUNTED}
+    assert launches == want, (launches, want)
+    params = tree_map(lambda t: t.to_local(), state["params"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (8, 16)).astype(np.int32)).to(dev)
+    runs = {}
+    for name, ctx in (("meshless", None), ("mesh", mc)):
+        (toks, ms), k = counted(lambda: mesh_greedy(
+            cfg, params, dev, prompt, 16, ctx, frames))
+        runs[name] = {"tokens": toks, "ms_a_step": ms, "launches": k}
+    assert runs["mesh"]["tokens"] == runs["meshless"]["tokens"], runs
+    assert runs["mesh"]["launches"] == runs["meshless"]["launches"], runs
+    # 16 prompt steps and 15 greedy (the last prompt step gives the first
+    # greedy token)
+    for name, n in (expect_decode or {}).items():
+        assert runs["mesh"]["launches"][name] == 31 * n, runs
+    emit("mesh_train", config=config, mesh="(1, 1) data=1 model=1, one "
+         "NCCL rank", batch=batches[0]["tokens"].shape[0],
+         seq_len=batches[0]["tokens"].shape[1], steps_meshless=plain_steps,
+         steps_mesh=steps, max_rel_loss_diff=rel, rtol=TRAIN_LOSS_RTOL,
+         launches_meshless=plain_k, launches_mesh=launches,
+         max_memory_allocated_meshless=plain_peak,
+         max_memory_allocated_mesh=peak,
+         decode={n: {k: v for k, v in r.items() if k != "tokens"}
+                 for n, r in runs.items()},
+         decode_tokens_equal=True, decode_rows=8, decode_prompt=16,
+         decode_new=16)
+    return {"train": launches, "decode": runs["mesh"]["launches"]}
+
+
+def mesh_families(dev, mc) -> dict:
+    """The families on the (1, 1) mesh (``mesh_family``): qwen2-7b at full
+    width cut to 4 layers, 3 steps; recurrentgemma-9b cut to 5 layers (the
+    train cell's ``RRL`` unit and ``RR`` tail) and rwkv6-3b cut to 4 W
+    layers, 2 steps each, all at batch 2 x 4096 from ``TrainLoader``; and
+    whisper-base whole, 2 steps at batch 8 x (1500 frames, 448
+    tokens)."""
+    out = {}
+    cfg = configs.get("qwen2_7b").replace(n_layers=4)
+    out["qwen2"] = mesh_family(
+        dev, mc, cfg, train_batches(cfg, dev, 3),
+        {"flash_attention": 2 * cfg.n_layers},
+        "qwen2_7b full width (d_model 3584, 28 heads, GQA kv=4, d_ff "
+        "18944, vocab 152064), 4 layers, bf16, random weights (seed 0)",
+        expect_decode={"decode_attention": cfg.n_layers})
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("recurrentgemma_9b").replace(n_layers=5)
+    out["recurrentgemma"] = mesh_family(
+        dev, mc, cfg, train_batches(cfg, dev, 2),
+        {"flash_attention": 2, "rglru_scan": 6, "rglru_scan_reverse": 4},
+        "recurrentgemma_9b full width (d_model 4096, 16 heads, MQA, "
+        "d_head 256, d_ff 12288, vocab 256000, window 2048, lru width "
+        "4096), 5 layers (RRL + RR tail), bf16, random weights (seed 0)",
+        expect_decode={"decode_attention": 1})
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("rwkv6_3b").replace(n_layers=4)
+    out["rwkv6"] = mesh_family(
+        dev, mc, cfg, train_batches(cfg, dev, 2), {"rwkv6_wkv": 8},
+        "rwkv6_3b full width (d_model 2560, d_ff 8960, vocab 65536, 16 "
+        "heads x 160), 4 W layers, bf16, random weights (seed 0)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("whisper_base")
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, cfg.frontend_len, cfg.d_model), np.float32)).to(dev, cfg.dtype)
+    out["whisper"] = mesh_family(
+        dev, mc, cfg, frontend_batches(cfg, dev, 2, 8, 448),
+        {"flash_attention": 6 * cfg.n_layers},
+        "whisper_base full width and depth (6 encoder + 6 decoder layers, "
+        "d_model 512, 8 heads x 64, d_ff 2048, vocab 51865), bf16, random "
+        "weights (seed 0); 1500 frames + 448 tokens", frames=frames,
+        expect_decode={"decode_attention": 2 * cfg.n_layers})
+    return out
+
+
 def mesh_train_phase(dev, dryrun) -> dict:
     """The mesh path on one card: a (1, 1) mesh (data=1, model=1) over a
     one-rank NCCL group (``make_debug_mesh_context``), moonshot through
-    the EP MoE and qwen2 meshless beside mesh, then the dry-run cell
+    the EP MoE, then qwen2 and the R, W and encoder-decoder families
+    meshless beside mesh (``mesh_families``), then the dry-run cells
     started at the run's beginning. Returns the launches by path."""
     if not torch.distributed.is_initialized():
         launch_ranks.init_local_group("cuda")
@@ -4185,7 +4414,7 @@ def mesh_train_phase(dev, dryrun) -> dict:
     out = {"moonshot": mesh_moonshot(dev, mc)}
     gc.collect()
     torch.cuda.empty_cache()
-    out["qwen2"] = mesh_qwen2(dev, mc)
+    out.update(mesh_families(dev, mc))
     finish_dryrun(dryrun)
     return out
 
@@ -4319,7 +4548,12 @@ def main() -> int:
                         "whisper_base_decode_step":
                             whisper["k2_by_attention"],
                         "qwen2_7b_4_layers_mesh_decode_step":
-                            mesh["qwen2"]["decode_32_steps"]})
+                            mesh["qwen2"]["decode"],
+                        "recurrentgemma_9b_5_layers_mesh_decode_step":
+                            mesh["recurrentgemma"]["decode"],
+                        "whisper_base_mesh_decode_step":
+                            mesh["whisper"]["decode"]},
+                    lse=k2["lse"])
     k3_entry = kernel_entry("flash_attention",
                             "src/repro/kernels/flash_attention.py:35",
                             train_launches["flash_attention"], k3)
@@ -4338,7 +4572,11 @@ def main() -> int:
                         "moonshot_v1_16b_a3b_4_layers_mesh_train":
                             mesh["moonshot"],
                         "qwen2_7b_4_layers_mesh_train":
-                            mesh["qwen2"]["train_3_steps"]},
+                            mesh["qwen2"]["train"],
+                        "recurrentgemma_9b_5_layers_mesh_train":
+                            mesh["recurrentgemma"]["train"],
+                        "whisper_base_mesh_train":
+                            mesh["whisper"]["train"]},
                     qwen2_cp_rank=k3["qwen2_cp_rank"])
     k5_entry = kernel_entry("rglru_scan",
                             "src/repro/kernels/rglru_scan.py:28",
@@ -4355,7 +4593,11 @@ def main() -> int:
                     kernel_host_ms=k5["kernel_host_ms"],
                     B1={key: k5["B1"][key] for key in (
                         "kernel_ms", "reverse_kernel_ms", "bound_ms",
-                        "reverse_bound_ms", "plan", "reverse_plan")})
+                        "reverse_bound_ms", "plan", "reverse_plan")},
+                    launches_by_path={
+                        "recurrentgemma_9b_5_layers_train": train_launches,
+                        "recurrentgemma_9b_5_layers_mesh_train":
+                            mesh["recurrentgemma"]["train"]})
     k4_entry = kernel_entry("rwkv6_scan",
                             "src/repro/kernels/rwkv6_scan.py:27",
                             k4_launches["rwkv6_wkv"], k4)
@@ -4364,7 +4606,11 @@ def main() -> int:
                     "H=16 N=160 chunk 16, bf16 r/k/v, fp32 logw/u/out",
                     max_rel_err=k4["max_rel_err"],
                     chunked_ms=k4["chunked_ms"],
-                    backward_plain_ms=k4["backward_two_level_ms"])
+                    backward_plain_ms=k4["backward_two_level_ms"],
+                    launches_by_path={
+                        "rwkv6_3b_train": k4_launches,
+                        "rwkv6_3b_4_layers_mesh_train":
+                            mesh["rwkv6"]["train"]})
     walls["total"] = round(time.time() - t_start, 3)
     emit("walls", seconds=walls)
     print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k4_entry,

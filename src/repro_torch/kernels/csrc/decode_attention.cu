@@ -8,7 +8,10 @@
 // - window. Scores are taken on q*scale in fp32, optionally softcapped
 // (c * tanh(s / c)); the softmax is online in fp32, P stays fp32 through
 // PV, a row that sees no key gives 0 (acc / max(l, 1e-30)), and the output
-// is written in q's dtype.
+// is written in q's dtype. On request (a non-null `lse`) the launch also
+// writes each row's fp32 log-sum-exp of its scaled scores, m + log(l), or
+// -inf for a row that sees no key: what a caller needs to merge attentions
+// over disjoint key ranges (the mesh path's sequence-sharded caches).
 //
 // What bounds it on this card: HBM bytes. Every (b, kv head) must read the
 // K and V rows of its visible keys once, plus its queries and outputs; the
@@ -37,7 +40,9 @@
 //    keys a half-warp a stage, and its dependent rounds are fewer.
 //  * The splits merge in the same launch: each split writes its (m, l,
 //    acc) to fp32 partials, and the last split of a row to arrive (a
-//    per-row counter, left at 0 for the next call) merges them.
+//    per-row counter, left at 0 for the next call) merges them. The
+//    log-sum-exp, where asked for, is written where the output is: by the
+//    one split, or by the merge from every split's (m, l).
 //  * The softcap is c * (1 - 2 / (exp(2s / c) + 1)) with 2 / c precomputed
 //    (attn::softcap_fast), within about 1e-7 * c of c * tanh(s / c).
 //
@@ -108,6 +113,11 @@ __device__ __forceinline__ float rescale(float m, float safe_max) {
 __device__ __forceinline__ float safe(float m) {
   return m <= kNegInf / 2 ? 0.f : m;
 }
+// log-sum-exp of a softmax state (max m, sum l against safe(m)): -inf for a
+// state that saw no key
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.f ? safe(m) + logf(l) : -INFINITY;
+}
 
 struct Args {
   const void* q;
@@ -117,6 +127,7 @@ struct Args {
   void* out;
   float* part;     // (B, H, n_splits, 2) m, l, then (B, H, n_splits, D) acc
   int* counters;   // one per (b, kv head, row group), 0 between calls
+  float* lse;      // (B, H) log-sum-exp of the scaled scores, or null
   int B, S, H, KV, D, window, n_splits, keys_per_split;
   float scale, softcap;
 };
@@ -350,6 +361,7 @@ decode_attention_kernel(const Args a) {
     const size_t bh = (size_t)b * H + kvh * G + g0 + g;
     if (n_splits == 1) {
       store(out + bh * D + d, x / fmaxf(lsum, 1e-30f));
+      if (a.lse != nullptr && d == 0) a.lse[bh] = log_sum_exp(mx, lsum);
     } else {
       part_acc[(bh * n_splits + split) * D + d] = x;
       if (d == 0) {
@@ -387,6 +399,7 @@ decode_attention_kernel(const Args a) {
       x += wt * __ldcg(part_acc + (bh * n_splits + sp) * D + d);
     }
     store(out + bh * D + d, x / fmaxf(lsum, 1e-30f));
+    if (a.lse != nullptr && d == 0) a.lse[bh] = log_sum_exp(mx, lsum);
   }
 }
 
@@ -455,14 +468,16 @@ bool bad_shape(int H, int KV, int D) {
 // ranges of keys_per_split keys; with n_splits > 1, `part` holds (B * H *
 // n_splits * (D + 2)) fp32 of scratch and `counters` one int32 per (b, KV
 // head, row group of the instance's heads), all 0 on entry and left 0.
+// `lse`, where not null, receives (B, H) fp32 log-sum-exps.
 // dtype 0 = float32, 1 = bfloat16. Launches one kernel on `stream` and
 // returns the CUDA error code of the launch (0 on success); does not
 // synchronise.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid_len,
                                        void* out, void* part, void* counters,
-                                       int B, int S, int H, int KV, int D,
-                                       int window, int n_splits,
+                                       void* lse, int B, int S, int H,
+                                       int KV, int D, int window,
+                                       int n_splits,
                                        int keys_per_split, float scale,
                                        float softcap, int dtype,
                                        void* stream) {
@@ -473,8 +488,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
     return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(valid_len), out,
                static_cast<float*>(part), static_cast<int*>(counters),
-               B, S, H, KV, D, window, n_splits, keys_per_split, scale,
-               softcap};
+               static_cast<float*>(lse), B, S, H, KV, D, window, n_splits,
+               keys_per_split, scale, softcap};
   const Launch launch{a, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return by_shape<float>(D, H / KV, launch);
   if (dtype == 1) return by_shape<__nv_bfloat16>(D, H / KV, launch);

@@ -7,7 +7,9 @@ Row ``b`` attends the cache slots ``kpos < valid_len[b]``, and with a
 query heads of one KV head (head ``h = kv * G + g``) share every key they
 read. Scores are taken on ``q * scale`` in fp32, optionally softcapped; the
 softmax is fp32 and a row that sees no key gives 0. A valid length past the
-cache's width counts the whole cache.
+cache's width counts the whole cache. With ``return_lse`` each row's fp32
+log-sum-exp of its scaled scores comes back too (-inf for a row that sees
+no key), so that attentions over disjoint key ranges merge exactly.
 
 * ``decode_attention`` — the wrapper. On CUDA tensors it launches the
   hand-written kernel ``csrc/decode_attention.cu`` (built at first use) or
@@ -15,6 +17,10 @@ cache's width counts the whole cache.
 * ``decode_attention_plain`` — the same function in plain PyTorch: dense
   fp32 masked softmax, probabilities kept in fp32 through PV. The CPU tests
   use it, and the kernel is held against it on the card.
+* ``merge_partials`` — partial attentions ``(out, lse)`` over disjoint key
+  ranges merged into the attention over their union (a max and two sums,
+  as the kernel merges its splits): stacked on the CPU or the card, or one
+  a rank with the reductions over the ranks given.
 """
 from __future__ import annotations
 
@@ -50,9 +56,12 @@ _signatures: Dict[tuple, tuple] = {}
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, valid_len: torch.Tensor,
                            window: Optional[int] = None,
-                           softcap: Optional[float] = None) -> torch.Tensor:
+                           softcap: Optional[float] = None,
+                           return_lse: bool = False):
     """q: (B, H, D) one query per row; k, v: (B, S, KV, D) cache;
-    valid_len: (B,) filled slots per row. Returns (B, H, D) in q's dtype.
+    valid_len: (B,) filled slots per row. Returns (B, H, D) in q's dtype,
+    and with ``return_lse`` also the (B, H) fp32 log-sum-exp of the scaled
+    scores (-inf for a row that sees no key).
 
     The kernel's semantics, not the reference's ``_sdpa``: scores on
     ``q * scale`` in fp32, softcap, then the mask; probabilities stay fp32
@@ -75,9 +84,43 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m <= NEG_INF / 2, 0.0, m)
     p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / l
-    return out.reshape(B, H, D).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / l.clamp_min(1e-30)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), -math.inf)
+    return out, lse.reshape(B, H)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, reduce_max=None,
+                   reduce_sum=None):
+    """The attention over the union of disjoint key ranges from each
+    range's ``(out, lse)`` (``decode_attention``'s with ``return_lse``):
+    ``M = max lse``, ``w = exp(lse - M)``, ``out = Σ w·out / Σ w``, ``lse =
+    M + log Σ w``. A partial whose lse is -inf (its range held no key the
+    row sees) weighs 0; a row no partial saw gives 0 and -inf, with no NaN.
+
+    Without reducers ``out`` (n, B, H, D) and ``lse`` (n, B, H) hold the n
+    partials stacked; with them, this rank's (B, H, D) and (B, H), and
+    ``reduce_max`` / ``reduce_sum`` take the elementwise max / sum of a
+    tensor over the ranks (all-reduces). Returns (out in out's dtype, lse
+    fp32). Plain PyTorch arithmetic: no attention runs here."""
+    if reduce_max is None:
+        def reduce_max(t):
+            return t.amax(dim=0)
+
+        def reduce_sum(t):
+            return t.sum(dim=0)
+    m = reduce_max(lse)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lse - m)
+    total = reduce_sum(torch.cat([w[..., None], w[..., None] * out.float()],
+                                 dim=-1))
+    l = total[..., 0]
+    merged = total[..., 1:] / l.clamp_min(1e-30)[..., None]
+    return (merged.to(out.dtype),
+            torch.where(l > 0, m + torch.log(l), -math.inf))
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,7 +131,7 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
     lib.decode_attention_occupancy.restype = ctypes.c_int
     lib.decode_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.decode_attention_launch.restype = ctypes.c_int
     return lib
@@ -228,10 +271,13 @@ def _signature_args(q, k, v, valid_len, window, softcap, key) -> tuple:
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: torch.Tensor, *,
                      window: Optional[int] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None,
+                     return_lse: bool = False):
     """Flash-decoding of one (B, H, D) query per row against a (B, S, KV,
     D) cache with (B,) valid lengths, an optional sliding ``window`` and
-    ``softcap``. Returns (B, H, D).
+    ``softcap``. Returns (B, H, D), and with ``return_lse`` also the (B, H)
+    fp32 log-sum-exp, written by the same launch (without it the launch is
+    the same, and writes none).
 
     CPU tensors take ``decode_attention_plain``. CUDA tensors launch the
     kernel on the current stream (no synchronisation) and count one launch
@@ -244,7 +290,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if t.device.type != "cpu":
                 raise ValueError(f"mixed devices: q on cpu, an input on "
                                  f"{t.device}")
-        return decode_attention_plain(q, k, v, valid_len, window, softcap)
+        return decode_attention_plain(q, k, v, valid_len, window, softcap,
+                                      return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
@@ -260,21 +307,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device, n_splits, n_counters, ints = args
     fn = _lib().decode_attention_launch
     out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if device == torch.cuda.current_device():
-        rc = _launch(fn, q, k, v, valid_len, out, device, n_splits,
+        rc = _launch(fn, q, k, v, valid_len, out, lse, device, n_splits,
                      n_counters, ints)
     else:
         with torch.cuda.device(device):
-            rc = _launch(fn, q, k, v, valid_len, out, device, n_splits,
+            rc = _launch(fn, q, k, v, valid_len, out, lse, device, n_splits,
                          n_counters, ints)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "
                            f"error {rc}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _launch(fn, q, k, v, valid_len, out, device, n_splits, n_counters,
+def _launch(fn, q, k, v, valid_len, out, lse, device, n_splits, n_counters,
             ints) -> int:
     """One launch on the current device's current stream; with splits,
     their fp32 partials (torch.empty on that stream) and its counters."""
@@ -297,7 +346,8 @@ def _launch(fn, q, k, v, valid_len, out, device, n_splits, n_counters,
             counters = _counter_buffer(device, stream, n_counters)
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
               out.data_ptr(), 0 if part is None else part.data_ptr(),
-              0 if counters is None else counters.data_ptr(), *ints, stream)
+              0 if counters is None else counters.data_ptr(),
+              0 if lse is None else lse.data_ptr(), *ints, stream)
 
 
 decode_attention.launches = 0

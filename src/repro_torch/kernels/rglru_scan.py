@@ -27,6 +27,7 @@ import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import build
 
@@ -183,7 +184,12 @@ def _launch(a, u, y, da, db, device: int, plan: RGLRUPlan) -> None:
 
 def rglru_scan_forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """y without autograd: the kernel on CUDA tensors (one launch counted
-    in ``rglru_scan.launches``), the plain version on CPU tensors."""
+    in ``rglru_scan.launches``), the plain version on CPU tensors, and on
+    fake tensors (the dry run) the kernel's output, shape and dtype only,
+    as the kernel allocates it (the plain version's loop over time would
+    take the dry run hours)."""
+    if is_fake(a):
+        return torch.empty_like(a)
     if _device(a, b) == "cpu":
         return rglru_scan_plain(a, b)[0]
     device, plan = _signature(a=a, b=b)
@@ -197,7 +203,10 @@ def rglru_scan_reverse(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(da, db) of the recurrence for ``dy``: the kernel's reverse mode on
     CUDA tensors (one launch counted in ``rglru_scan_reverse.launches``),
-    ``rglru_scan_bwd_plain`` on CPU tensors."""
+    ``rglru_scan_bwd_plain`` on CPU tensors; on fake tensors the kernel's
+    outputs, shapes and dtypes only."""
+    if is_fake(a):
+        return torch.empty_like(a), torch.empty_like(a)
     if _device(a, y, dy) == "cpu":
         return rglru_scan_bwd_plain(a, y, dy)
     device, plan = _signature(a=a, y=y, dy=dy)

@@ -36,6 +36,7 @@ import math
 from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import build
 
@@ -240,7 +241,14 @@ def _launch(r, k, v, logw, u, chunk):
 def rwkv6_wkv_forward(r, k, v, logw, u, *, chunk: int = 16
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, S_last) without autograd: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors, and on fake tensors (the dry run) the
+    kernel's outputs, shapes and dtypes only, as the kernel allocates them
+    (the plain version's loop over the chunks would take the dry run
+    hours)."""
+    if is_fake(r):
+        B, T, H, N = r.shape
+        return (r.new_empty((B, T, H, N), dtype=torch.float32),
+                r.new_empty((B, H, N, N), dtype=torch.float32))
     kinds = {t.device.type for t in (r, k, v, logw, u)}
     if kinds == {"cpu"}:
         _check_chunk(chunk)

@@ -32,24 +32,17 @@ def model_spec(cfg: ModelConfig) -> Dict:
     return LM.lm_spec(cfg)
 
 
-def _refuse_encdec_mesh(mesh_ctx) -> None:
-    if mesh_ctx is not None and mesh_ctx.mesh is not None:
-        raise NotImplementedError(
-            "the encoder-decoder family on a mesh is not ported yet "
-            "(ROADMAP.md §1, item 2: the encoder-decoder on a mesh)")
-
-
 def forward(cfg: ModelConfig, params, batch: Dict, *, mesh_ctx=None,
             unroll: int = 1, last_logit_only: bool = False):
     """Logits of a batch. ``mesh_ctx`` (a ``sharding.MeshContext``):
     with a mesh, ``params`` and the batch are DTensors on it and the
-    forward runs the mesh path (``lm.lm_forward``). ``unroll`` is the
+    forward runs the mesh path (``lm.lm_forward`` or
+    ``encdec.encdec_forward``). ``unroll`` is the
     reference's layer-scan unroll; the port loops eagerly, so it changes
     nothing."""
     if cfg.family == "encdec":
-        _refuse_encdec_mesh(mesh_ctx)
         return ED.encdec_forward(cfg, params, batch["tokens"],
-                                 batch["frames"],
+                                 batch["frames"], mesh_ctx=mesh_ctx,
                                  last_logit_only=last_logit_only)
     return LM.lm_forward(cfg, params, batch["tokens"], mesh_ctx=mesh_ctx,
                          patches=batch.get("patches"),
@@ -116,14 +109,15 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     one token with one shared position from ``encdec_prefill_cache``'s
     cache, and raises on the rest, as the reference does. ``mesh_ctx``:
     with a mesh, params, cache and tokens are DTensors on it
-    (``lm.lm_decode_step``); ``unroll`` changes nothing here."""
+    (``lm.lm_decode_step``, ``encdec.encdec_decode_step``); ``unroll``
+    changes nothing here."""
     if cfg.family == "encdec":
-        _refuse_encdec_mesh(mesh_ctx)
         if seq_lens is not None or tokens.shape[1] != 1 \
                 or paged_tables is not None or kv_shard is not None:
             raise NotImplementedError(
                 "chunked/paged decode is decoder-LM only (encdec is S=1)")
-        return ED.encdec_decode_step(cfg, params, cache, tokens, pos)
+        return ED.encdec_decode_step(cfg, params, cache, tokens, pos,
+                                     mesh_ctx=mesh_ctx)
     return LM.lm_decode_step(cfg, params, cache, tokens, pos,
                              mesh_ctx=mesh_ctx, seq_lens=seq_lens,
                              paged_tables=paged_tables, kv_shard=kv_shard)

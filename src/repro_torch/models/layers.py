@@ -22,7 +22,8 @@ DTensor products. What DTensor cannot propagate runs on each rank's local
 shards under ``local_map``, with the placements set just before it: the
 embedding lookup (``_mesh_embed``), the MLP (``_mesh_mlp``), and RoPE, the
 attention kernels and the output projection (``_mesh_attention``,
-``_mesh_decode_attention``).
+``_mesh_decode_attention``, which merges a sequence-sharded cache's
+partial attentions across ranks).
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import (decode_attention, decode_attention_plain,
-                       flash_attention, paged_attention_plain,
-                       paged_decode_attention)
+                       flash_attention, merge_partials,
+                       paged_attention_plain, paged_decode_attention)
+from ..sharding import all_max, reduce_from_group
 from .attention import chunked_attention
 from .common import ModelConfig, p
 
@@ -378,14 +380,16 @@ def _out_placements(mesh_ctx, q_pl):
 
 
 def _mesh_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, *, positions,
-                    window, bidirectional, prefix_len):
+                    window, bidirectional, prefix_len, cross=False):
     """RoPE, the training/prefill attention and the output projection on
     each rank's shards (``local_map`` with q/k/v's placements as
     ``_tp_qkv_constraints`` set them). Queries sharded over the sequence
     (the context-parallel fallback) are rows ``[r·S/tp, (r+1)·S/tp)`` on
     model rank r: RoPE takes their positions and the attention their
     ``q_offset``, and the projected rows stay sequence-sharded. Queries
-    sharded over heads give a partial sum over model."""
+    sharded over heads give a partial sum over model. ``cross``: queries
+    against an encoder's keys and values (``_cross_attention``: no RoPE,
+    every key visible)."""
     H, KV = q.shape[2], k.shape[2]
     q_pl, k_pl, v_pl = (tuple(t.placements) for t in (q, k, v))
     wo_pl = tuple(wo.placements)
@@ -393,11 +397,14 @@ def _mesh_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, *, positions,
     cp = isinstance(q_pl[m], Shard) and q_pl[m].dim == 1
 
     def body(ql, kl, vl, wol):
+        kl, vl = _local_kv_heads(mesh_ctx, q_pl, k_pl, H, KV, kl, vl)
+        if cross:
+            out = _cross_attention(cfg, ql, kl, vl)
+            return torch.einsum("bshk,hkd->bsd", out, wol)
         off = mesh_ctx.model_rank() * ql.shape[1] if cp else None
         rows = slice(off or 0, (off or 0) + ql.shape[1])
         ql = rope(ql, positions[:, rows], cfg.rope_theta)
         kl = rope(kl, positions, cfg.rope_theta)
-        kl, vl = _local_kv_heads(mesh_ctx, q_pl, k_pl, H, KV, kl, vl)
         out = _self_attention(cfg, ql, kl, vl, window=window,
                               bidirectional=bidirectional,
                               prefix_len=prefix_len, q_offset=off)
@@ -414,44 +421,125 @@ def _mesh_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, *, positions,
                      redistribute_inputs=True)(q, k, v, wo)
 
 
+def _global_offset(t, dim: int) -> int:
+    """The global index of this rank's first element of DTensor ``t``
+    along ``dim``, which its placements split evenly: in mesh order, each
+    mesh dim that shards ``dim`` splits the previous one's chunk."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    size, off = t.shape[dim], 0
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            size //= mesh.size(i)
+            off += coord[i] * size
+    return off
+
+
+def _merge_over_groups(groups, out, lse):
+    """``merge_partials`` of this rank's (out, lse) with those of the other
+    ranks of each group in ``groups`` (one mesh dim's group each): the
+    max and the two sums all-reduced over each in turn."""
+    def reduce_max(t):
+        for g in groups:
+            t = all_max(t, g)
+        return t
+
+    def reduce_sum(t):
+        for g in groups:
+            t = reduce_from_group(t, g)
+        return t
+
+    return merge_partials(out, lse, reduce_max, reduce_sum)[0]
+
+
 def _mesh_decode_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, cache,
                            cache_pos, cache_valid_len, positions):
     """A bulk decode step's attention on each rank's shards (``local_map``
-    with the placements set just before it): the chunk's RoPE, its write
-    into the rank's shard of the cache, in place, and the attention over
-    it (``decode_attention``, the K2 kernel on CUDA), and the output
-    projection. The cache shards batch over data and KV heads over model
-    (or keeps them whole), so each rank's query heads read only its own
-    cache shard."""
-    q_pl, k_pl = tuple(q.placements), tuple(k.placements)
-    wo_pl = tuple(wo.placements)
-    c_pl = tuple(cache["k"].placements)
-    if not q_pl == k_pl == c_pl:
-        raise NotImplementedError(
-            f"a decode step whose q/k placements {q_pl}/{k_pl} differ "
-            f"from its cache's {c_pl}")
-    base = cache_pos + 1 if cache_valid_len is None else cache_valid_len
+    with the placements set just before it): the token's RoPE, its write
+    into the rank's shard of the cache, in place, the attention over that
+    shard (``decode_attention``, the K2 kernel on CUDA) and the output
+    projection. With ``k is None`` a cross-attention of the token over an
+    encoder's cached keys and values (``cache``; no RoPE, no write, every
+    key valid).
 
-    def body(ql, kl, vl, wol, ck, cv):
-        ql = rope(ql, positions, cfg.rope_theta)
-        kl = rope(kl, positions, cfg.rope_theta)
-        B = ql.shape[0]
-        _write_bulk(ck, cache_pos, kl.to(ck.dtype))
-        _write_bulk(cv, cache_pos, vl.to(cv.dtype))
-        valid = torch.full((B,), int(base), dtype=torch.int32,
-                           device=ql.device)
-        attend = (decode_attention_plain if cfg.decode_kernel == "xla"
-                  else decode_attention)
-        out = attend(ql[:, 0].contiguous(), ck, cv, valid,
-                     softcap=cfg.attn_logit_softcap)[:, None]
+    The cache shards batch over data and KV heads over model, or keeps
+    the heads whole and shards its sequence (few KV heads; the data axes
+    a small batch leaves over): each rank then holds slots ``[s0, s0 +
+    S_local)``, attends them with the valid length clipped to its slice
+    (0 where the row sees none of it), and the token is written by the
+    rank whose slice holds its slot. The ranks' partial attentions, each
+    with K2's log-sum-exp, merge over the mesh dims that shard the
+    sequence (``merge_partials``: a max and two sums all-reduced), after
+    which every rank of those dims holds the attention over the whole
+    cache. Queries sharded over heads on such a dim are gathered first;
+    the output then meets ``wo``'s head shard as a partial sum over
+    model."""
+    ck_t, cv_t = cache["k"], cache["v"]
+    c_pl = tuple(ck_t.placements)
+    seq_dims = [i for i, pl in enumerate(c_pl)
+                if isinstance(pl, Shard) and pl.dim == 1]
+    # q and the new token's k/v: laid out as the cache, the sequence's
+    # dims replicated (the token is every slice's query); heads as the
+    # cache's where it shards them
+    whole_seq = tuple(Replicate() if i in seq_dims else pl
+                      for i, pl in enumerate(c_pl))
+    q_pl = tuple(Replicate() if i in seq_dims else
+                 c_pl[i] if isinstance(c_pl[i], Shard) else pl
+                 for i, pl in enumerate(q.placements))
+    q = mesh_ctx._redistribute(q, q_pl)
+    cross = k is None
+    args = [q, wo, ck_t, cv_t]
+    if not cross:
+        args += [mesh_ctx._redistribute(k, whole_seq),
+                 mesh_ctx._redistribute(v, whole_seq)]
+    wo_pl = tuple(wo.placements)
+    m = mesh_ctx.model_dim()
+    out_pl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else
+              Replicate() for pl in q_pl]
+    out_pl[m] = Partial() if isinstance(wo_pl[m], Shard) else Replicate()
+    S, H, KV = ck_t.shape[1], q.shape[2], ck_t.shape[2]
+    s0 = _global_offset(ck_t, 1) if seq_dims else 0
+    groups = [mesh_ctx.mesh.get_group(i) for i in seq_dims]
+    if cross:
+        base = S
+    else:
+        base = cache_pos + 1 if cache_valid_len is None else cache_valid_len
+    attend = (decode_attention_plain if cfg.decode_kernel == "xla"
+              else decode_attention)
+
+    def body(ql, wol, ck, cv, kl=None, vl=None):
+        B, n = ql.shape[0], ck.shape[1]
+        if not cross:
+            ql = rope(ql, positions, cfg.rope_theta)
+            kl = rope(kl, positions, cfg.rope_theta)
+            # the reference's update slice, its start clamped into the
+            # whole cache, lands on the rank whose slice holds its slot
+            slot = min(max(int(cache_pos), 0), S - 1) - s0
+            if 0 <= slot < n:
+                ck[:, slot:slot + 1] = kl.to(ck.dtype)
+                cv[:, slot:slot + 1] = vl.to(cv.dtype)
+        valid = torch.full((B,), min(max(int(base) - s0, 0), n),
+                           dtype=torch.int32, device=ql.device)
+        kh, vh = _local_kv_heads(mesh_ctx, q_pl, c_pl, H, KV, ck, cv)
+        qa = ql[:, 0].contiguous()
+        if groups:
+            out, lse = attend(qa, kh.contiguous(), vh.contiguous(), valid,
+                              softcap=cfg.attn_logit_softcap,
+                              return_lse=True)
+            out = _merge_over_groups(groups, out, lse)
+        else:
+            out = attend(qa, kh.contiguous(), vh.contiguous(), valid,
+                         softcap=cfg.attn_logit_softcap)
+        out = out[:, None]
+        if wol.shape[0] != out.shape[2]:
+            # every head's output against wo's head shard
+            h0 = mesh_ctx.model_rank() * wol.shape[0]
+            out = out[:, :, h0:h0 + wol.shape[0]]
         return torch.einsum("bshk,hkd->bsd", out, wol)
 
-    return local_map(body,
-                     out_placements=_out_placements(mesh_ctx, q_pl),
-                     in_placements=(q_pl, k_pl, k_pl, wo_pl, c_pl, c_pl),
+    return local_map(body, out_placements=out_pl,
+                     in_placements=tuple(tuple(a.placements) for a in args),
                      device_mesh=mesh_ctx.mesh,
-                     redistribute_inputs=True)(q, k, v, wo, cache["k"],
-                                               cache["v"])
+                     redistribute_inputs=True)(*args)
 
 
 def attention(cfg: ModelConfig, params, x, *, positions, window=None,
@@ -464,9 +552,11 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
     With a mesh (``mesh_ctx``; DTensor params and ``x``): ``gather_seq``
     on entry, q/k/v laid out by ``_tp_qkv_constraints``, then RoPE and
     the attention on each rank's shards: ``_mesh_attention`` without a
-    cache, ``_mesh_decode_attention`` for a bulk decode step into a
-    DTensor cache (the decode cache must not shard the sequence; the
-    caller checks), each with the output projection: a partial sum over
+    cache (and for a cross-attention chunk), ``_mesh_decode_attention``
+    for a bulk decode step into a DTensor cache, or a one-token
+    cross-attention over cached encoder keys, whose sequence may be
+    sharded (the ranks' partial attentions then merge through K2's
+    log-sum-exp), each with the output projection: a partial sum over
     model where heads are sharded.
 
       * training/prefill: ``cache=None``; causal (or bidirectional)
@@ -503,9 +593,25 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
     in bf16 it parts from the kernel there.)"""
     B, Sq = x.shape[:2]
     if mesh_ctx is not None and mesh_ctx.mesh is not None:
-        assert cross_kv is None and paged is None and kv_shard is None, \
-            "the mesh path has no cross-attention and no paged plane"
+        assert paged is None and kv_shard is None, \
+            "the mesh path has no paged plane"
         x = mesh_ctx.gather_seq(x)     # SP all-gather on TP-region entry
+        if cross_kv is not None:
+            q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+            if cfg.qkv_bias:
+                q = q + params["bq"]
+            if Sq == 1:
+                # a decode step over the cached encoder keys, laid out as
+                # the cache is
+                return _mesh_decode_attention(
+                    cfg, mesh_ctx, q, None, None, params["wo"],
+                    {"k": cross_kv[0], "v": cross_kv[1]}, None, None,
+                    positions), cache
+            q, k, v = _tp_qkv_constraints(mesh_ctx, q, *cross_kv)
+            return _mesh_attention(cfg, mesh_ctx, q, k, v, params["wo"],
+                                   positions=positions, window=None,
+                                   bidirectional=True, prefix_len=0,
+                                   cross=True), cache
         q, k, v = _tp_qkv_constraints(mesh_ctx, *_qkv(cfg, params, x, x))
         if cache is None:
             return _mesh_attention(cfg, mesh_ctx, q, k, v, params["wo"],

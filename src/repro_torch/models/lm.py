@@ -23,8 +23,10 @@ batch and cache are DTensors), each sublayer's weights are gathered over
 the FSDP axes right before use (``constrain_tree(..., fsdp=False)``) and
 the residual stream is laid out batch over data, sequence over model
 (``shard_activations``) at entry and after each sublayer of the unit, as
-in the reference. G, L and M layers run on a mesh; the R and W kinds and
-a decode cache that shards the sequence raise ``NotImplementedError``.
+in the reference. Every layer kind runs on a mesh, in the forward and in
+the decode step: the R and W mixers on each rank's channel or head shard
+(``recurrent``), and a decode cache that shards the sequence through a
+merge of the ranks' partial attentions (``layers._mesh_decode_attention``).
 """
 from __future__ import annotations
 
@@ -32,13 +34,13 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
-from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from ..sharding import all_max, reduce_from_group
-from .common import ModelConfig, ParamSpec, p, tree_map, tree_paths
+from .common import ModelConfig, ParamSpec, p, tree_map
 from .moe import moe, moe_spec
 from .recurrent import (rglru_block, rglru_block_spec, rglru_state_shape,
                         rwkv_channel_mix, rwkv_channel_mix_spec,
@@ -126,14 +128,6 @@ def _on_mesh(mesh_ctx) -> bool:
     return mesh_ctx is not None and mesh_ctx.mesh is not None
 
 
-def _refuse_on_mesh(kinds) -> None:
-    bad = sorted(set(kinds) & {"R", "W"})
-    if bad:
-        raise NotImplementedError(
-            f"layer kinds {bad} on a mesh are not ported yet (ROADMAP.md "
-            "§1, item 1: the R and W layers on a mesh)")
-
-
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
                     paged=None, prefix_len: int = 0, kv_shard=None,
@@ -147,7 +141,6 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
     weights are first gathered over the FSDP axes (``constrain_tree(...,
     fsdp=False)``). Returns h."""
     if _on_mesh(mesh_ctx):
-        _refuse_on_mesh(kind)
         # FSDP: gather this sublayer's weights (in bf16) right before use
         prm = mesh_ctx.constrain_tree(prm, _sublayer_spec(cfg, kind),
                                       fsdp=False)
@@ -158,22 +151,26 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
         tm_out, tm_state = rwkv_time_mix(
             cfg, prm["tm"], x,
             state=None if cache is None else {"shift": cache["tm_shift"],
-                                              "S": cache["S"]})
+                                              "S": cache["S"]},
+            mesh_ctx=mesh_ctx)
         h = h + tm_out
         cm_out, cm_shift = rwkv_channel_mix(
             cfg, prm["cm"], L.norm(cfg, prm["ln2"], h),
-            state=None if cache is None else cache["cm_shift"])
+            state=None if cache is None else cache["cm_shift"],
+            mesh_ctx=mesh_ctx)
         if cache is not None:
             _write_state(cache, {"tm_shift": tm_state["shift"],
                                  "S": tm_state["S"], "cm_shift": cm_shift})
         return h + cm_out
     if kind == "R":
         x = L.norm(cfg, prm["ln1"], h)
-        rec_out, state = rglru_block(cfg, prm["rec"], x, state=cache)
+        rec_out, state = rglru_block(cfg, prm["rec"], x, state=cache,
+                                     mesh_ctx=mesh_ctx)
         if cache is not None:
             _write_state(cache, state)
         h = h + rec_out
-        return h + L.mlp(cfg, prm["mlp"], L.norm(cfg, prm["ln2"], h))
+        return h + L.mlp(cfg, prm["mlp"], L.norm(cfg, prm["ln2"], h),
+                         mesh_ctx)
     window = cfg.window if kind == "L" else None
     x = L.norm(cfg, prm["ln1"], h)
     attn_out, _ = L.attention(cfg, prm["attn"], x, positions=positions,
@@ -195,8 +192,12 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
 
 def _write_state(cache: Dict, state: Dict) -> None:
     """A recurrent layer's new state into its cache views, in place, each
-    leaf cast to the cache leaf's dtype."""
+    leaf cast to the cache leaf's dtype; on a mesh first laid out as the
+    cache leaf is (where the mixer computed it whole, a local slice)."""
     for name, value in state.items():
+        if isinstance(value, DTensor):
+            value = value.redistribute(value.device_mesh,
+                                       cache[name].placements)
         cache[name].copy_(value)
 
 
@@ -221,8 +222,6 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, mesh_ctx=None,
     ``batch_pspec``."""
     pat, n_rep, tail = unit_pattern(cfg)
     mesh = _on_mesh(mesh_ctx)
-    if mesh:
-        _refuse_on_mesh(pat + tail)
     h = L.embed(cfg, params["embed"], tokens, mesh_ctx if mesh else None)
     prefix_len = 0
     if cfg.frontend == "patch_embed":
@@ -360,17 +359,18 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ``mesh_ctx`` (the mesh path): params, cache and tokens are DTensors
     laid out by the rules (``cache_pspec`` for the cache); a bulk step
     (one shared ``pos``) of one token runs each attention on the rank's
-    cache shard (``layers._mesh_decode_attention``). A cache whose
-    ``cache_pspec`` shards the sequence, and per-slot positions, raise
-    ``NotImplementedError``.
+    cache shard (``layers._mesh_decode_attention``; where the shard is a
+    slice of the sequence, the ranks' partial attentions merge through
+    K2's log-sum-exp) and each R and W layer on the rank's state shard.
+    Per-slot positions, chunks and the paged plane raise
+    ``NotImplementedError`` there.
 
     Returns (logits (B,1,vocab), cache)."""
     pat, n_rep, tail = unit_pattern(cfg)
     B, S = tokens.shape
     mesh = _on_mesh(mesh_ctx)
     if mesh:
-        _check_mesh_decode(mesh_ctx, pat + tail, cache, pos, S,
-                           seq_lens, paged_tables, kv_shard)
+        _check_mesh_decode(pos, S, seq_lens, paged_tables, kv_shard)
     if S > 1 or paged_tables is not None:
         unsupported = set(pat + tail) - {"G", "M"}
         if unsupported:
@@ -433,10 +433,8 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         cache
 
 
-def _check_mesh_decode(mesh_ctx, kinds, cache, pos, S, seq_lens,
-                       paged_tables, kv_shard) -> None:
+def _check_mesh_decode(pos, S, seq_lens, paged_tables, kv_shard) -> None:
     """What the mesh path's decode step does not take raises here."""
-    _refuse_on_mesh(kinds)
     if (S != 1 or seq_lens is not None or paged_tables is not None
             or kv_shard is not None
             or (isinstance(pos, torch.Tensor) and pos.ndim == 1)):
@@ -444,16 +442,6 @@ def _check_mesh_decode(mesh_ctx, kinds, cache, pos, S, seq_lens,
             "the mesh path decodes one token a row at one shared position; "
             "the serve engines' chunks, per-slot positions and paged plane "
             "take a KVShardCtx instead")
-
-    for path, leaf in tree_paths(cache):
-        spec = mesh_ctx.cache_pspec(path, tuple(leaf.shape))
-        seq = 2 if "stack" in path else 1
-        if len(spec) > seq and spec[seq] is not None:
-            raise NotImplementedError(
-                f"decode cache leaf {'/'.join(path)} {tuple(leaf.shape)} "
-                f"shards its sequence ({spec}); that needs a cross-rank "
-                "merge of the decode softmax, not ported yet (ROADMAP.md "
-                "§1, item 3: sequence-sharded decode caches)")
 
 
 # ---------------------------------------------------------------------------

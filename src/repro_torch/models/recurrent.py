@@ -9,6 +9,18 @@ The decode form (``state=`` carried in) is the reference's one-token
 update in plain PyTorch, as the reference computes it outside any Pallas
 kernel: ``rglru_step`` and RWKV6's ``S = exp(logw)·S_prev + k vᵀ``, with
 the recurrent state (``h``, ``S``) in fp32.
+
+With a ``MeshContext`` over a ``DeviceMesh`` (the mesh path), each mixer
+takes its input sequence-gathered (``gather_seq``) and runs, either form,
+on each rank's shards (``_mesh_mixer``): the RG-LRU block over
+the rank's slice of the lru width (whole gate blocks: the reference's
+constraint of ``rec`` and ``gate`` over the model axis), the time mix
+over its RWKV heads (``r, k, v, g``, the WKV and the per-head norm), the
+channel mix over its slice of ``d_ff`` (``kx``); K5 and K4 then scan the
+rank's channels or heads. Each output is a partial sum over the model
+axis where the weights are sharded there; the state (``h``/``conv`` over
+the width, ``S`` over heads, the shifts whole) comes back laid out as
+``cache_pspec`` lays the decode cache.
 """
 from __future__ import annotations
 
@@ -17,9 +29,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels import rglru_scan as _rglru_scan_kernel
 from ..kernels import rwkv6_wkv as _rwkv6_wkv_kernel
 from .common import ModelConfig, p
+from .layers import _partial_where_split
 
 # ---------------------------------------------------------------------------
 # RG-LRU  (Griffin, arXiv:2402.19427, adapted per RecurrentGemma)
@@ -45,9 +61,10 @@ def rglru_block_spec(cfg: ModelConfig) -> Dict:
 
 
 def _blockdiag(x, w):
-    """x: (..., W) @ block-diagonal w: (NB, bs, bs) -> (..., W)."""
+    """x: (..., W) @ block-diagonal w: (NB, bs, bs) -> (..., W). NB is w's
+    own: on a mesh rank, the whole blocks of its slice of the width."""
     shape = x.shape
-    xb = x.reshape(shape[:-1] + (_NB, shape[-1] // _NB))
+    xb = x.reshape(shape[:-1] + (w.shape[0], shape[-1] // w.shape[0]))
     yb = torch.einsum("...nb,nbc->...nc", xb, w)
     return yb.reshape(shape)
 
@@ -101,11 +118,82 @@ def rglru_step(params, x, h_prev):
     return h[:, None, :].to(x.dtype), h
 
 
-def rglru_block(cfg: ModelConfig, params, x, *, state: Optional[Dict] = None):
+def _state_placements(mesh_ctx, x_pl, dim):
+    """A state leaf's placements: batch over data as ``x_pl``'s rows, the
+    model axis over ``dim`` (None: replicated)."""
+    m = mesh_ctx.model_dim()
+    pl = [Shard(0) if isinstance(p_, Shard) and p_.dim == 0 else Replicate()
+          for p_ in x_pl]
+    pl[m] = Replicate() if dim is None else Shard(dim)
+    return pl
+
+
+def _mesh_mixer(mesh_ctx, fn, params, x, state, state_dims, sharded):
+    """``fn(params, x, state) -> (out, new_state)`` (a meshless mixer) on
+    each rank's shards: ``x`` sequence-gathered, the params sharded over
+    model where ``sharded`` (else gathered whole there), the state
+    redistributed to its working layout (``state_dims``: its leaves' model
+    dims when sharded). The output is a partial sum over model where
+    sharded; the new state comes back in the working layout."""
+    x = mesh_ctx.gather_seq(x)
+    x_pl = tuple(x.placements)
+    m = mesh_ctx.model_dim()
+    names, args = list(params), []
+    for t in params.values():
+        if not sharded:
+            pl = list(t.placements)
+            pl[m] = Replicate()
+            t = mesh_ctx._redistribute(t, pl)
+        args.append(t)
+    keys = list(state_dims)
+    st_pl = {k: _state_placements(mesh_ctx, x_pl,
+                                  state_dims[k] if sharded else None)
+             for k in keys}
+    if state is not None:
+        args += [mesh_ctx._redistribute(state[k], st_pl[k]) for k in keys]
+    out_pl = list(x_pl)
+    out_pl[m] = Partial() if sharded else Replicate()
+    n = len(names)
+
+    def body(xl, *rest):
+        prm = dict(zip(names, rest[:n]))
+        st = None if state is None else dict(zip(keys, rest[n:]))
+        out, new = fn(prm, xl, st)
+        return (out,) + tuple(new[k] for k in keys)
+
+    # the gradient of an input a mesh dim replicates while another input
+    # shards it (each rank of that dim does a share of the work with it)
+    # is a partial sum over that dim
+    args = [x] + args
+    pls = [tuple(a.placements) for a in args]
+    split = [Shard(0) if any(isinstance(p_[i], Shard) for p_ in pls)
+             else Replicate() for i in range(len(x_pl))]
+    res = local_map(body,
+                    out_placements=(out_pl,) + tuple(st_pl[k] for k in keys),
+                    in_placements=tuple(pls),
+                    in_grad_placements=tuple(_partial_where_split(p_, split)
+                                             for p_ in pls),
+                    device_mesh=mesh_ctx.mesh,
+                    redistribute_inputs=True)(*args)
+    return res[0], dict(zip(keys, res[1:]))
+
+
+def rglru_block(cfg: ModelConfig, params, x, *, state: Optional[Dict] = None,
+                mesh_ctx=None):
     """The Griffin recurrent block: in-proj → causal conv → RG-LRU, gated.
     x: (B,S,d). ``state`` = {"conv": (B,K-1,W), "h": (B,W)} for a one-token
     decode (``rglru_step``); without it the scan over S. Returns (out
-    (B,S,d), new state: the conv context in x's dtype, ``h`` in fp32)."""
+    (B,S,d), new state: the conv context in x's dtype, ``h`` in fp32).
+    ``mesh_ctx``: the mesh form (the module's docstring), over the rank's
+    whole gate blocks; where the model axis does not divide the blocks,
+    each rank computes the whole width."""
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        sharded = isinstance(
+            params["gate_a"].placements[mesh_ctx.model_dim()], Shard)
+        return _mesh_mixer(
+            mesh_ctx, lambda prm, xl, st: rglru_block(cfg, prm, xl,
+                                                      state=st),
+            params, x, state, {"conv": 2, "h": 1}, sharded)
     rec = torch.einsum("bsd,dw->bsw", x, params["w_x"])
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_y"]),
                   approximate="tanh")
@@ -199,13 +287,22 @@ def _rwkv_out(cfg, params, wkv, g):
 
 
 def rwkv_time_mix(cfg: ModelConfig, params, x, *,
-                  state: Optional[Dict] = None):
+                  state: Optional[Dict] = None, mesh_ctx=None):
     """x: (B,S,d). state = {"shift": (B,d), "S": (B,H,N,N) fp32} for a
     single-token decode, the reference's one-step update in plain PyTorch;
     without it the training/prefill form, whose WKV goes through
     ``kernels.rwkv6_wkv`` in chunks of ``_RWKV_CHUNK`` (the CUDA kernel on
     CUDA tensors, its plain version on CPU tensors). Returns (out (B,S,d),
-    {"shift": (B,d), "S": (B,H,N,N) fp32})."""
+    {"shift": (B,d), "S": (B,H,N,N) fp32}). ``mesh_ctx``: the mesh form
+    (the module's docstring), over the rank's heads; the shift whole on
+    every model rank."""
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        sharded = isinstance(
+            params["wr"].placements[mesh_ctx.model_dim()], Shard)
+        return _mesh_mixer(
+            mesh_ctx, lambda prm, xl, st: rwkv_time_mix(cfg, prm, xl,
+                                                        state=st),
+            params, x, state, {"shift": None, "S": 1}, sharded)
     xprev = _shift(x, None if state is None else state["shift"])
     r, k, v, g, logw = _rwkv_proj(cfg, params, x, xprev)
     u = params["u"].float()
@@ -239,9 +336,20 @@ def rwkv_channel_mix_spec(cfg: ModelConfig) -> Dict:
 
 
 def rwkv_channel_mix(cfg: ModelConfig, params, x, *,
-                     state: Optional[torch.Tensor] = None):
+                     state: Optional[torch.Tensor] = None, mesh_ctx=None):
     """RWKV6 FFN with token shift. state: (B,d) last token (decode).
-    Returns (out (B,S,d), the last token (B,d))."""
+    Returns (out (B,S,d), the last token (B,d)). ``mesh_ctx``: the mesh
+    form (the module's docstring), over the rank's slice of ``d_ff``."""
+    if mesh_ctx is not None and mesh_ctx.mesh is not None:
+        sharded = isinstance(
+            params["wk"].placements[mesh_ctx.model_dim()], Shard)
+        out, new = _mesh_mixer(
+            mesh_ctx,
+            lambda prm, xl, st: _with_shift(*rwkv_channel_mix(
+                cfg, prm, xl, state=None if st is None else st["shift"])),
+            params, x, None if state is None else {"shift": state},
+            {"shift": None}, sharded)
+        return out, new["shift"]
     xprev = _shift(x, state)
 
     def mix(mu):
@@ -253,6 +361,10 @@ def rwkv_channel_mix(cfg: ModelConfig, params, x, *,
     rx = torch.sigmoid(torch.einsum("bsd,de->bse", mix(params["mu_r"]),
                                     params["wr"]))
     return rx * vx, x[:, -1, :]
+
+
+def _with_shift(out, shift):
+    return out, {"shift": shift}
 
 
 def rwkv_state_shape(cfg: ModelConfig, batch: int):

@@ -1,6 +1,7 @@
 """The port's dry run (``python -m repro_torch.launch.dryrun``) on the CPU:
 one full-width cell through the CLI (its keys, the numbers it reports and
-the ``null``s it must not fake), an unported kind reported ``ok: false``
+the ``null``s it must not fake), a recurrent decode cell (R state and a
+sequence-sharded rolling cache), a cell that fails reported ``ok: false``
 with exit code 1, and the private fake-group module the dry run stands
 on."""
 import json
@@ -17,8 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 DEADLINE = 300.0
 
 
-def _cli(*args, tmp):
-    out = tmp / f"{args[1]}.json"
+def _cli(*args, tmp, name=None):
+    out = tmp / f"{name or args[1]}.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("RANK", None)
     env.pop("WORLD_SIZE", None)
@@ -30,14 +31,17 @@ def _cli(*args, tmp):
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
-    """Both CLI runs at once: qwen2-7b's train_4k at full width on the
-    256-rank mesh with one microbatch, and recurrentgemma-9b's, whose R
-    layers the mesh path does not run yet."""
+    """The CLI runs at once: qwen2-7b's train_4k at full width on the
+    256-rank mesh with one microbatch, recurrentgemma-9b's decode_32k, and
+    qwen2-7b's train_4k at 3 microbatches, which do not divide a data
+    rank's 16 rows."""
     tmp = tmp_path_factory.mktemp("dryrun")
     runs = {"qwen2": _cli("--arch", "qwen2_7b", "--shape", "train_4k",
                           "--microbatches", "1", tmp=tmp),
             "rg": _cli("--arch", "recurrentgemma-9b", "--shape",
-                       "train_4k", "--microbatches", "1", tmp=tmp)}
+                       "decode_32k", tmp=tmp),
+            "bad": _cli("--arch", "qwen2-7b", "--shape", "train_4k",
+                        "--microbatches", "3", tmp=tmp, name="bad")}
     done = {}
     for name, (path, p) in runs.items():
         try:
@@ -78,14 +82,31 @@ def test_cli_reports_one_full_width_cell(cells):
 
 
 def test_unported_kind_reports_not_ok_and_exits_1(cells):
-    rc, out, err, (r,) = cells["rg"]
+    """A cell that fails (here: a microbatch count that does not divide a
+    data rank's rows) is reported ``ok: false`` with its error, and the
+    command exits 1."""
+    rc, out, err, (r,) = cells["bad"]
     assert rc == 1
     assert r["ok"] is False
     assert (r["arch"], r["shape"], r["mesh"]) == \
-        ("recurrentgemma_9b", "train_4k", "16x16")
-    assert r["error"].startswith("NotImplementedError")
-    assert "ROADMAP.md §1, item 1" in r["error"]
+        ("qwen2_7b", "train_4k", "16x16")
+    assert r["error"].startswith("RuntimeError")
     assert "[FAIL]" in out and "0/1 cells compiled" in out
+
+
+def test_recurrent_decode_cell_reports_ok(cells):
+    """recurrentgemma-9b's decode_32k (R state over the lru width, the
+    rolling L cache's 2048 slots sharded over the model axis, one KV
+    head) runs on the 256-rank mesh."""
+    rc, out, err, (r,) = cells["rg"]
+    assert rc == 0, err[-3000:]
+    assert (r["arch"], r["shape"], r["mesh"], r["ok"]) == \
+        ("recurrentgemma_9b", "decode_32k", "16x16", True)
+    mem = r["memory"]
+    assert 0 < mem["argument_bytes"] <= mem["peak_bytes"]
+    assert r["hbm_frac"] == mem["peak_bytes"] / 85_017_493_504
+    assert r["collectives"]["per_kind_count"]["all-reduce"] > 0
+    assert "1/1 cells compiled" in out
 
 
 def test_fake_process_group_module_is_importable():
@@ -113,3 +134,28 @@ def test_strided_shard_index_math_runs_under_the_fake_mode():
             shard.local_shard_size_and_offset(8, 2, 1)
         with _real_index_math():
             assert shard.local_shard_size_and_offset(8, 2, 1) == want
+
+
+def test_scan_wrappers_give_the_kernels_outputs_on_fake_tensors():
+    """Under the dry run's fake mode K5's and K4's wrappers (forward and
+    backward) give their kernels' outputs, shapes and dtypes, without the
+    plain versions' loops over time."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import rglru_scan, rwkv6_wkv
+
+    with FakeTensorMode():
+        a = torch.empty((2, 4096, 64), requires_grad=True)
+        b = torch.empty((2, 4096, 64), requires_grad=True)
+        y, h = rglru_scan(a, b)
+        (y.sum() + h.sum()).backward()
+        assert y.shape == a.shape and h.shape == (2, 64)
+        assert a.grad.shape == a.shape and b.grad.shape == b.shape
+        r = torch.empty((2, 4096, 4, 16), dtype=torch.bfloat16,
+                        requires_grad=True)
+        lw = torch.empty((2, 4096, 4, 16))
+        out, s_last = rwkv6_wkv(r, r, r, lw, torch.empty((4, 16)))
+        out.sum().backward()
+        assert out.shape == r.shape and out.dtype == torch.float32
+        assert s_last.shape == (2, 4, 16, 16)
+        assert r.grad.shape == r.shape

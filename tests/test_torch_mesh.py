@@ -325,10 +325,19 @@ def test_cell_bytes_match_reference(runs, cell):
 
 
 def test_sequence_sharded_smoke_caches_are_refused(runs):
-    refused = runs["port_fake"]["refused"]
-    assert set(refused) == {"qwen2_7b", "moonshot_v1_16b_a3b"}
-    for msg in refused.values():
-        assert "shards its sequence" in msg and "item 3" in msg
+    """The smoke decode cells whose cache shards the sequence over the
+    model axis (one or three KV heads on two model ranks) compile on the
+    fake (2, 2) mesh: each rank attends its slice of the cache and the
+    partial attentions merge through K2's log-sum-exp."""
+    cells = runs["port_fake"]["seq_sharded"]
+    assert set(cells) == {"qwen2_7b", "moonshot_v1_16b_a3b"}
+    for r in cells.values():
+        assert r["ok"] is True and r["devices"] == 4
+        assert r["kv_pspec"][2] == "model", r["kv_pspec"]
+        assert 0 < r["memory"]["argument_bytes"] <= r["memory"]["peak_bytes"]
+        # the merge's all-reduces over the model axis, a max and a sum an
+        # attention layer
+        assert r["collectives"]["per_kind_count"]["all-reduce"] > 0
 
 
 # ------------------------------------------------------------------ (d)

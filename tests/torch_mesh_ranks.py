@@ -11,7 +11,7 @@
   cases, in a process of their own: rank 0's local shape of every
   train-state leaf for every arch on both production meshes, rank r's
   shard of a pod-major tensor, a mesh larger than the group, the smoke
-  decode cells whose cache shards the sequence; written to
+  decode cells whose cache shards the sequence (their reports); written to
   ``JOBDIR/port_fake_shapes.pkl``. ``... JOBDIR cells ARCH``: the
   argument and output bytes of ARCH's smoke cells on a (2, 2) mesh, to
   ``JOBDIR/port_fake_cells_ARCH.pkl``.
@@ -24,8 +24,9 @@ from pathlib import Path
 
 
 # the smoke cells whose bytes are held to the reference's compiled ones
-# (decode only where the smoke cache shards heads, not the sequence)
+# (qwen2's decode cache shards the sequence, gemma2's its heads)
 BYTES_CELLS = [("qwen2_7b", "train_4k"), ("qwen2_7b", "prefill_32k"),
+               ("qwen2_7b", "decode_32k"),
                ("gemma2_27b", "train_4k"), ("gemma2_27b", "prefill_32k"),
                ("gemma2_27b", "decode_32k"),
                ("moonshot_v1_16b_a3b", "train_4k"),
@@ -96,8 +97,8 @@ def main(jobdir: str) -> None:
 
 def fake_main(jobdir: str, part: str, arch: str = "") -> None:
     """``part`` "shapes": the train-state shapes, the pod-major shards,
-    a mismatched mesh and the refused decode cells; "cells": ``arch``'s
-    cells' bytes."""
+    a mismatched mesh and the sequence-sharded decode cells; "cells":
+    ``arch``'s cells' bytes."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import (make_debug_mesh_context,
@@ -127,13 +128,17 @@ def fake_main(jobdir: str, part: str, arch: str = "") -> None:
                 k: tuple(v.to_local().shape) for k, v in _flat(state).items()}
     dryrun.join_fake_group(4)
     mc = make_debug_mesh_context((2, 2))
-    refused = {}
+    seq_sharded = {}
     for arch in ("qwen2_7b", "moonshot_v1_16b_a3b"):
-        try:
-            dryrun.run_cell(arch, "decode_32k", mesh_ctx=mc,
-                            cfg_override=configs.get(arch, smoke=True))
-        except NotImplementedError as e:
-            refused[arch] = str(e)
+        cfg = configs.get(arch, smoke=True)
+        r = dryrun.run_cell(arch, "decode_32k", mesh_ctx=mc,
+                            cfg_override=cfg)
+        shape = (configs.SHAPES["decode_32k"].global_batch,
+                 configs.SHAPES["decode_32k"].seq_len, cfg.kv_heads,
+                 cfg.d_head)
+        r["kv_pspec"] = tuple(mc.cache_pspec(("stack", "0_G", "k"),
+                                             (cfg.n_layers,) + shape))
+        seq_sharded[arch] = r
     dryrun.join_fake_group(8)
     try:
         make_debug_mesh_context((2, 2))
@@ -141,7 +146,7 @@ def fake_main(jobdir: str, part: str, arch: str = "") -> None:
     except ValueError as e:
         mismatch = str(e)
     Path(jobdir, "port_fake_shapes.pkl").write_bytes(pickle.dumps(
-        {"shapes": shapes, "refused": refused, "mismatch": mismatch,
+        {"shapes": shapes, "seq_sharded": seq_sharded, "mismatch": mismatch,
          "pod_major": _pod_major()}))
 
 
