@@ -353,6 +353,7 @@ def _serve(args, device, injector) -> int:
         print(f"  {k:26s} {v:.3f}" if isinstance(v, float)
               else f"  {k:26s} {v}")
     if recorder is not None:
+        eng.flush_trace()
         recorder.export(args.trace)
         print(f"trace: {args.trace}  events={len(recorder.events)}"
               f"  emitted={recorder.n_emitted}"

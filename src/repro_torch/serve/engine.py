@@ -77,6 +77,7 @@ import torch
 
 from ..models.api import decode_cache_shapes, init_decode_cache
 from ..models.common import ModelConfig, tree_map, tree_paths
+from ..obs.device import DEVICE_LANE, TID_DEVICE as _TID_DEVICE, DeviceSteps
 from ..obs.trace import (TID_ENGINE as _TID_ENGINE, TID_REQ as _TID_REQ,
                          TID_SCHED as _TID_SCHED, TID_STORE as _TID_STORE)
 from ..sharding import KVShardCtx, serve_tp_context
@@ -292,23 +293,48 @@ class ServeEngine:
         self.rejected = 0               # backpressure sheds
         self.cancellations = 0
         # obs: an attached ``repro_torch.obs.TraceRecorder`` (None = every
-        # instrumentation site is one predicate)
+        # instrumentation site is one predicate) and the ring of device
+        # step events that goes with it
         self.trace = None
         self._trace_pid = 0
+        self.device_steps: Optional[DeviceSteps] = None
 
     # ------------------------------------------------------------------ obs
     def attach_trace(self, recorder, pid: int = 0,
                      name: str = "engine") -> None:
         """Wire a ``TraceRecorder`` through every layer of this engine:
         step phases + scheduler decisions + request lifecycle (this
-        class), and store events (the prefix store)."""
+        class), and store events (the prefix store). The port adds spans
+        of its own, under categories the reference does not emit: the
+        engine's calls into the store (``store.call``), how the step
+        program ran each step (``program``) and, once ``flush_trace()``
+        has run, each step's time on the device (``device``, from a ring
+        of event pairs made here; this synchronizes once)."""
         self.trace = recorder
         self._trace_pid = pid
         for tid in (_TID_ENGINE, _TID_SCHED, _TID_STORE, _TID_REQ):
             recorder.label(pid, name, tid=tid)
+        recorder.label(pid, name, tid=_TID_DEVICE, tname=DEVICE_LANE)
         self.store.trace = recorder
         self.store.trace_pid = pid
+        self.step_program.trace = recorder
+        self.step_program.trace_pid = pid
+        self.device_steps = DeviceSteps(recorder, self.device, pid)
         recorder.vt = self.now
+
+    def flush_trace(self) -> int:
+        """Write the device times of the steps dispatched since the last
+        flush to the recorder as ``step.device`` spans; synchronizes, so
+        call it outside any timed region. Returns the spans written."""
+        if self.device_steps is None:
+            return 0
+        return self.device_steps.flush()
+
+    def _store_span(self, name: str, req: "Request"):
+        """An open span around one of the engine's calls into the store
+        (tracing on only)."""
+        return self.trace.span(name, "store.call", self._trace_pid,
+                               _TID_STORE, args={"rid": req.rid}).begin()
 
     def _aid(self, req: "Request") -> str:
         """Async-track id for a request: pid-qualified."""
@@ -349,7 +375,12 @@ class ServeEngine:
         req = Request(next(self._rid), list(prompt), max_new,
                       arrival=self.now if arrival is None else arrival,
                       deadline=deadline)
-        req.prefix_rid = self.store.register_request(prompt)
+        if self.trace is None:
+            req.prefix_rid = self.store.register_request(prompt)
+        else:
+            span = self._store_span("register", req)
+            req.prefix_rid = self.store.register_request(prompt)
+            span.end()
         self.queue.append(req)
         if self.trace is not None:
             self.trace.begin_async(
@@ -391,7 +422,7 @@ class ServeEngine:
                 self.queue.remove(req)
             except ValueError:
                 pass
-        self.store.complete_request(req.prefix_rid)
+        self._retire(req)
         self._drain(req)
         req.finished_at = self.now
         self._trace_req_end(req)
@@ -421,11 +452,15 @@ class ServeEngine:
         Gather: the store makes room first (freeing pool indices), then the
         factory allocates one pool row per fresh block and a single scatter
         captures exactly those blocks from the slot's contiguous cache."""
+        span = (None if self.trace is None
+                else self._store_span("publish", req))
         if self.paged:
             table = self._tables[req.slot]
             self.store.insert(req.prompt,
                               lambda i, _node: self.pool.share(table[i]),
                               self.pool.block_nbytes)
+            if span is not None:
+                span.end()
             return
         fresh: List[Tuple[int, int]] = []       # (chain position, pool row)
 
@@ -435,6 +470,8 @@ class ServeEngine:
             return idx
 
         self.store.insert(req.prompt, alloc, self.pool.block_nbytes)
+        if span is not None:
+            span.end()
         if fresh:
             self.pool.scatter_from(self.cache, req.slot,
                                    [i for i, _ in fresh],
@@ -467,7 +504,12 @@ class ServeEngine:
                     req = self.queue[pick]
                     del self.queue[pick]
             self._fresh_slots.add(i)
-            usable = self.store.lookup(req.prompt)
+            if self.trace is None:
+                usable = self.store.lookup(req.prompt)
+            else:
+                span = self._store_span("lookup", req)
+                usable = self.store.lookup(req.prompt)
+                span.end(args={"blocks": len(usable)})
             if not self.restore_prefix:
                 usable = []             # hit metrics recorded; no restore
             restored = len(usable) * bt
@@ -609,9 +651,15 @@ class ServeEngine:
         # one batched step on the device: the previous argmax routed into
         # the decode feeds, the KV written in place, the (B,) argmax left
         # on the device
+        if trace is not None:
+            self.device_steps.begin()
         out_tok = self.step_program(
             self.pool.buffers if self.paged else self.cache, tokens, meta,
             tables)
+        if trace is not None:
+            key = self.step_program.key
+            self.device_steps.end(self.steps, S, key[1] if self.paged
+                                  else None, self.step_program.mode)
         if dispatch is not None:
             dispatch.end(args={"S": S, "fed": len(fed),
                                "decoding": len(decoding)})
@@ -681,9 +729,18 @@ class ServeEngine:
         r.n_generated = len(r.generated)
         r.done = True
         r.finished_at = self.now
-        self.store.complete_request(r.prefix_rid)
+        self._retire(r)
         self._release_slot(r)
         self._trace_req_end(r)
+
+    def _retire(self, r: Request) -> None:
+        """Retire a request's chain in the store (finish or cancel)."""
+        if self.trace is None:
+            self.store.complete_request(r.prefix_rid)
+        else:
+            span = self._store_span("retire", r)
+            self.store.complete_request(r.prefix_rid)
+            span.end()
 
     def _release_slot(self, r: Request) -> None:
         """Free a slot's engine-side resources *now* (finish or cancel):

@@ -107,6 +107,7 @@ class ShardedFrontend:
         self.failover_retries = 0
         self.shard_crashes_fired = 0
         self._recorder = None
+        self._retired_rings = []        # device steps of replaced engines
         self.bus = MessageBus(record_log=False, stats_level=stats_level)
         self.bus.faults = faults
         self.trackers = [PeerTracker(k, self.bus) for k in range(n_shards)]
@@ -188,6 +189,13 @@ class ShardedFrontend:
         recorder.label(self.n_shards, "bus", tid=_TID_BUS)
         self.bus.trace = recorder
         self.bus.trace_pid = self.n_shards
+
+    def flush_trace(self) -> int:
+        """``ServeEngine.flush_trace`` on every shard's engine, those a
+        crash replaced included; returns the spans written."""
+        rings = self._retired_rings + [e.device_steps for e in self.shards]
+        self._retired_rings = []
+        return sum(r.flush() for r in rings if r is not None)
 
     # ---------------------------------------------------------- coordination
     def _ns(self, shard: int, ident: str) -> str:
@@ -356,6 +364,8 @@ class ShardedFrontend:
         eng._rid = itertools.count(next(old._rid))
         if self._recorder is not None:
             eng.attach_trace(self._recorder, pid=k, name=f"shard{k}")
+            # the crashed engine's device steps are flushed with the rest
+            self._retired_rings.append(old.device_steps)
         self.shards[k] = eng
         tracker.request_resync(include_dag=self._distribute_profiles)
         fi.count("recover.resync")

@@ -35,6 +35,16 @@ wrapper. What a replay launches is read from the graph itself: each
 capture lists its graph's kernel nodes by kernel name (``graph_kernels``,
 through libcuda's graph calls), summed in ``captured_kernels``, and each
 replay adds its graph's list to ``replayed_kernels``.
+
+How each call ran is counted and, with a recorder attached
+(``ServeEngine.attach_trace``), spanned on the engine lane under the
+category ``program``, with the signature in the span's args: ``eager``
+(a first sighting, or every call of an uncaptured program; counted in
+``eager_steps``), ``capture`` (the recording; ``captures``) and
+``replay`` (each graph launch, the one right after a capture included;
+``replays``). So on a captured program ``eager_steps + replays`` is the
+number of calls. ``mode`` is the last call's, and ``signatures`` every
+signature seen.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import torch
 
 from ..models.common import ModelConfig
 from ..models.lm import lm_decode_step
+from ..obs.trace import TID_ENGINE as _TID_ENGINE
 
 # CUgraphNodeType (cuda.h)
 _KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
@@ -128,8 +139,16 @@ class StepProgram:
         self._graphs: Dict[Tuple[int, ...], tuple] = {}
         self._kv = None              # the KV tree the graphs were taken on
         self._pool = None
+        self.eager_steps = 0
         self.captures = 0
         self.replays = 0
+        # the last call's: eager / capture / replay, and its signature
+        self.mode: Optional[str] = None
+        self.key: Optional[Tuple[int, ...]] = None
+        # obs: an attached TraceRecorder and the engine's trace pid (None:
+        # each span site is one predicate)
+        self.trace = None
+        self.trace_pid = 0
         self.captured_kernels: Counter = Counter()
         self.replayed_kernels: Counter = Counter()
 
@@ -161,7 +180,8 @@ class StepProgram:
         if self.capture:
             self._graph_step(kv, tok)
         else:
-            self._run(kv, tok)
+            self._seen.add(self._key(tok))
+            self._eager(kv, tok)
         # a replayed graph writes every step's argmax into the same
         # ``out``: each step hands out a copy for the pipelined readback
         return self.out.clone()
@@ -184,26 +204,62 @@ class StepProgram:
                             | (emit & (self.out == self.eos_id)))
         self.prev.copy_(self.out)
 
+    @property
+    def signatures(self) -> frozenset:
+        """Every step signature seen: (S, NW) on the paged plane, (S,) on
+        the gather plane."""
+        return frozenset(self._seen)
+
+    def _key(self, tok: torch.Tensor) -> Tuple[int, ...]:
+        self.key = ((tok.shape[1], self.tables.shape[1]) if self.paged
+                    else (tok.shape[1],))
+        return self.key
+
+    def _span(self, name: str):
+        key = self.key
+        return self.trace.span(name, "program", self.trace_pid, _TID_ENGINE,
+                               args={"S": key[0], "NW": key[1]
+                                     if len(key) > 1 else None}).begin()
+
+    def _eager(self, kv, tok: torch.Tensor) -> None:
+        self.mode = "eager"
+        self.eager_steps += 1
+        if self.trace is None:
+            self._run(kv, tok)
+            return
+        span = self._span("eager")
+        self._run(kv, tok)
+        span.end()
+
     def _graph_step(self, kv, tok: torch.Tensor) -> None:
         if kv is not self._kv:
             # the graphs read the KV buffers they were captured on
             self._graphs.clear()
             self._pool = None
             self._kv = kv
-        key = ((tok.shape[1], self.tables.shape[1]) if self.paged
-               else (tok.shape[1],))
+        key = self._key(tok)
         entry = self._graphs.get(key)
+        self.mode = "replay"
         if entry is None:
             if key not in self._seen:
                 self._seen.add(key)
-                self._run(kv, tok)
+                self._eager(kv, tok)
                 return
+            span = None if self.trace is None else self._span("capture")
             entry = self._graphs[key] = self._record(
                 lambda: self._run(kv, tok))
+            if span is not None:
+                span.end()
             self.captured_kernels.update(entry[1])
             self.captures += 1
+            self.mode = "capture"
         graph, kernels = entry
-        graph.replay()
+        if self.trace is None:
+            graph.replay()
+        else:
+            span = self._span("replay")
+            graph.replay()
+            span.end()
         self.replays += 1
         self.replayed_kernels.update(kernels)
 

@@ -29,6 +29,7 @@ from repro_torch.kernels import (decode_attention,  # noqa: E402
 from repro_torch.models import init_params, model_spec  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
+from repro_torch.obs.device import PORT_CATEGORIES  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
 from repro_torch.serve import step_graph  # noqa: E402
 
@@ -95,7 +96,9 @@ def _engine(cfg, params, dev, paged, chunk, cuda_graphs, bounded=True,
 
 def _drive(eng, scenario, max_new):
     """Run ``scenario`` on ``eng``; returns what must match, and the
-    trace's events (wall clock dropped) when one is attached."""
+    trace's events (wall clock dropped) when one is attached, less the
+    port-only categories, whose ``program`` spans say how each step ran
+    and so differ between a captured engine and an eager one."""
     rec = None
     if scenario == "trace":
         rec = TraceRecorder()
@@ -113,7 +116,7 @@ def _drive(eng, scenario, max_new):
     eng.run()
     events = None if rec is None else [
         {k: v for k, v in ev.items() if k not in ("wall", "dur_wall")}
-        for ev in rec.events]
+        for ev in rec.events if ev["cat"] not in PORT_CATEGORIES]
     return ([r.generated for r in reqs], streamed,
             [r.cancelled for r in reqs], eng.store.eviction_log,
             eng.metrics(), events)

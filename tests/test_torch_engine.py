@@ -478,9 +478,11 @@ def test_eos_detection_matches_reference(model):
 def test_trace_events_match_reference(model):
     """The port's engine emits the reference's trace: the same events, in
     the same order, with the same virtual times and arguments (only the
-    wall clock differs)."""
+    wall clock differs), once the categories only the port emits are set
+    aside."""
     from repro.obs import TraceRecorder as JaxRecorder
     from repro_torch.obs import TraceRecorder
+    from repro_torch.obs.device import PORT_CATEGORIES
 
     jcfg, tcfg, jparams, tparams = model
     traces = []
@@ -493,8 +495,11 @@ def test_trace_events_match_reference(model):
         for r in workload(cfg.vocab):
             eng.submit(r, max_new=MAX_NEW)
         eng.run()
+        if cls is ServeEngine:
+            assert eng.flush_trace() == eng.steps
         traces.append([{k: v for k, v in ev.items()
                         if k not in ("wall", "dur_wall")}
-                       for ev in rec.events])
+                       for ev in rec.events
+                       if ev["cat"] not in PORT_CATEGORIES])
     assert len(traces[0]) > 100
     assert traces[1] == traces[0]
