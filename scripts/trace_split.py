@@ -27,7 +27,13 @@ JSON object, and writes it to PATH too:
   is left (host time before this request's submit in the harness's loop,
   and after the first-token step's end until the harness's mark);
 * ``device_window``: the window's steps, their device seconds and the host
-  wait;
+  wait; the token rows its steps fed and computed, and the share that
+  carried a token (``rows``); and its replayed steps' mean device ms,
+  split by steps whose every fed slot fed one token and steps that carried
+  a prefill chunk, with their counts by packed rows (``replays_by_kind``);
+  and the host's time a step builds and uploads its feed outside the step
+  program (``host_build``: each ``dispatch`` span less its ``program``
+  span);
 * ``host_waits``: that wait, each instant named by the innermost host span
   that covers it (seconds by name, and the longest waits);
 * ``clock``: the largest gap between a step's ``step.device`` end and the
@@ -147,6 +153,70 @@ def step_device_mean_s(dev, w0: float, w1: float,
                        mode: str = "replay") -> Optional[float]:
     spans = [e - b for b, e, m in window_steps(dev, w0, w1) if m == mode]
     return sum(spans) / len(spans) if spans else None
+
+
+def replay_ms_by_kind(events, w0: float, w1: float,
+                      pid: int = 0) -> Dict[str, Dict]:
+    """The window's replayed steps split by whether every fed slot fed one
+    token (``decode_only``: the step's ``S`` is 1) or some slot fed a
+    prefill chunk (``prefill``): their count and mean device ms, and
+    their count by packed rows ``T`` (None where the engine's spans carry
+    no T)."""
+    out: Dict[str, Dict] = {}
+    for kind in ("decode_only", "prefill"):
+        spans = [e for e in events if e["ph"] == "X"
+                 and e["cat"] == "device" and e["pid"] == pid
+                 and e["args"]["mode"] == "replay"
+                 and (e["args"]["S"] == 1) == (kind == "decode_only")
+                 and w0 <= e["wall"] and e["wall"] + e["dur_wall"] <= w1]
+        durs = [e["dur_wall"] for e in spans]
+        by_t: Dict = {}
+        for e in spans:
+            t = e["args"].get("T")
+            by_t[t] = by_t.get(t, 0) + 1
+        out[kind] = {"steps": len(durs),
+                     "mean_ms": sum(durs) / len(durs) * 1e3 if durs
+                     else None,
+                     "steps_by_T": dict(sorted(by_t.items(),
+                                               key=lambda kv: str(kv[0])))}
+    return out
+
+
+def host_build_ms(events, w0: float, w1: float,
+                  pid: int = 0) -> Optional[Dict[str, float]]:
+    """The host's time a step spends building and uploading its feed
+    outside the step program: each ``dispatch`` span of the window less
+    the ``program`` span inside it (the step's device event pair
+    included); mean and p90 in ms, None without the spans."""
+    prog = sorted((e["wall"], e["dur_wall"]) for e in events
+                  if e["ph"] == "X" and e["cat"] == "program"
+                  and e["pid"] == pid)
+    begins = [b for b, _ in prog]
+    out = []
+    for e in events:
+        if e["ph"] != "X" or e["cat"] != "engine" \
+                or e["name"] != "dispatch" or e["pid"] != pid \
+                or not w0 <= e["wall"] < w1:
+            continue
+        i = bisect.bisect_left(begins, e["wall"])
+        if i < len(prog) and prog[i][0] <= e["wall"] + e["dur_wall"]:
+            out.append(e["dur_wall"] - prog[i][1])
+    if not out:
+        return None
+    return {"steps": len(out), "mean_ms": sum(out) / len(out) * 1e3,
+            "p90_ms": _pct(out, 90) * 1e3}
+
+
+def row_share(before: Optional[Dict], after: Optional[Dict]) -> Dict:
+    """The window's token rows fed and computed (``ServeEngine.step_rows``
+    before and after it), and the share of computed rows that carried a
+    token; None where the engine does not count them."""
+    if before is None or after is None:
+        return {"rows_real": None, "rows_run": None, "real_share": None}
+    real = after["rows_real"] - before["rows_real"]
+    run = after["rows_run"] - before["rows_run"]
+    return {"rows_real": real, "rows_run": run,
+            "real_share": real / run if run else None}
 
 
 def union_s(spans) -> float:
@@ -353,8 +423,11 @@ def traced_window(cell, seed: int, seconds: float, device: str) -> Dict:
     drv.recorder = rec
     if cuda:
         DeviceSlice.prime()
+    step_rows = getattr(eng, "step_rows", lambda: None)
+    rows0 = step_rows()
     wall0, reqs, steps, before, after, sl, sl_steps = harness.measure(
         drv, traffic, slots, seconds, clock, cuda)
+    rows1 = step_rows()
     t_flush = time.perf_counter()
     written = eng.flush_trace()
     flush_s = time.perf_counter() - t_flush
@@ -393,7 +466,10 @@ def traced_window(cell, seed: int, seconds: float, device: str) -> Dict:
             "device_s": dev_s, "window_s": span,
             "host_wait_s": span - union_s(ws),
             "modes": {m: sum(x[2] == m for x in ws)
-                      for m in ("eager", "capture", "replay")}},
+                      for m in ("eager", "capture", "replay")},
+            "rows": row_share(rows0, rows1),
+            "host_build": host_build_ms(events, w0, w1),
+            "replays_by_kind": replay_ms_by_kind(events, w0, w1)},
         "host_waits": waits_by_span(events, w0, w1),
         "clock": clock_check(run, events, offset, clock.t0,
                              int(before["engine_steps"]), sl),

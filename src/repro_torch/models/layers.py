@@ -7,8 +7,10 @@ Every mode of the reference's ``attention``: training/prefill (no cache:
 the flash-attention kernel on CUDA, ``_sdpa`` or ``chunked_attention`` on
 CPU), causal, bidirectional (an encoder) or with an image prefix; the
 decode modes: paged (chunk written into pool rows, attention out of the
-pool, optionally head-sharded over a ``KVShardCtx``), and the gather
-plane's per-slot and bulk modes over contiguous caches; and
+pool, optionally head-sharded over a ``KVShardCtx``), on a (B, S) grid
+or on packed token rows (``PackedRows``: each row written at its own
+slot's pool row, the queries scattered into K1's tile and back), and the
+gather plane's per-slot and bulk modes over contiguous caches; and
 cross-attention over an encoder's precomputed keys and values
 (``cross_kv_spec``, ``make_cross_kv``).
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -263,6 +265,59 @@ def _paged_write_attend_tp(cfg: ModelConfig, kv_shard, q, k, v, kp, vp,
                                       k[:, :, hkv], v[:, :, hkv], kp, vp,
                                       tables, lens, cache_pos)
     return kv_shard.gather_heads(out), kp, vp
+
+
+class PackedRows(NamedTuple):
+    """Where each of a packed paged step's T token rows belongs
+    (``lm.lm_packed_step``): ``pos`` (T,) its absolute position; ``write``
+    (pool row, offset), each (T,), where its K/V goes: ``tables[slot, pos
+    // bt]`` and ``pos % bt``, a padding row's the junk row 0 at offset 0;
+    ``tile`` (T,) its place in the flattened (B, S) query tile that K1
+    takes (a padding row's: B * S, one past the tile) and ``back`` (T,)
+    the tile entry it reads its output from (a padding row's: 0); ``qpos``
+    (B, S) int32 the tile's positions (0 where no row lands); ``tables``
+    (B, NW) int32; ``last`` (B,) each slot's last real row. With S = 1,
+    row b is slot b and the rows are the tile."""
+    pos: torch.Tensor
+    write: Tuple[torch.Tensor, torch.Tensor]
+    tile: torch.Tensor
+    back: torch.Tensor
+    qpos: torch.Tensor
+    tables: torch.Tensor
+    last: torch.Tensor
+
+
+def _packed_write_attend(cfg: ModelConfig, q, k, v, kp, vp,
+                         rows: PackedRows):
+    """The paged plane on packed rows: q (1, T, H, D), k and v (1, T, KV,
+    D) of T token rows, each of its own slot and position. Each row's K/V
+    is written IN PLACE into the pool pages ``kp``/``vp`` at
+    ``rows.write``; the queries are scattered into the (B, S, H, D) tile of
+    ``_paged_attention`` and its outputs gathered back to the rows. Returns
+    (1, T, H, D)."""
+    T, H, D = q.shape[1:]
+    kp.index_put_(rows.write, k[0].to(kp.dtype))
+    vp.index_put_(rows.write, v[0].to(vp.dtype))
+    B, S = rows.qpos.shape
+    if S == 1:
+        return _paged_attention(cfg, q.reshape(B, 1, H, D), kp, vp,
+                                rows.tables, rows.qpos).reshape(1, T, H, D)
+    tile = q.new_zeros((B * S + 1, H, D))
+    tile[rows.tile] = q[0]
+    out = _paged_attention(cfg, tile[:-1].view(B, S, H, D), kp, vp,
+                           rows.tables, rows.qpos)
+    return out.reshape(B * S, H, D)[rows.back][None]
+
+
+def _packed_write_attend_tp(cfg: ModelConfig, kv_shard, q, k, v, kp, vp,
+                            rows: PackedRows):
+    """``_packed_write_attend`` on one rank of ``kv_shard``: the rank's
+    head slices, as ``_paged_write_attend_tp`` takes them, and the outputs
+    all-gathered over heads."""
+    hq, hkv = kv_shard.heads(q.shape[2]), kv_shard.heads(k.shape[2])
+    out = _packed_write_attend(cfg, q[:, :, hq].contiguous(), k[:, :, hkv],
+                               v[:, :, hkv], kp, vp, rows)
+    return kv_shard.gather_heads(out)
 
 
 def _write_per_slot(cache, tpos, val) -> None:
@@ -545,6 +600,7 @@ def _mesh_decode_attention(cfg: ModelConfig, mesh_ctx, q, k, v, wo, cache,
 def attention(cfg: ModelConfig, params, x, *, positions, window=None,
               cache: Optional[Dict] = None, cache_pos=None,
               cache_valid_len=None, paged: Optional[Dict] = None,
+              packed: Optional[PackedRows] = None,
               cross_kv=None, bidirectional: bool = False,
               prefix_len: int = 0, kv_shard=None, mesh_ctx=None):
     """Attention layer (proj → rope → attend → proj). Returns (out, cache).
@@ -577,6 +633,9 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
         Absolute positions only (G layers). With ``kv_shard`` (serve
         tensor parallelism) the pages hold this rank's KV heads and the
         attention runs ``_paged_write_attend_tp``.
+      * packed: ``cache`` the pool views as paged, ``x`` (1, T, d) the
+        packed rows of ``lm_packed_step`` and ``packed`` their
+        ``PackedRows``: ``_packed_write_attend`` (or its ``_tp`` form).
       * gather: ``cache`` = {"k","v"} (B, S_cache, KV, D); the chunk is
         written at slot ``cache_pos`` — (B,) per slot (continuous
         batching) or one shared scalar (bulk) — and query token j attends
@@ -635,6 +694,11 @@ def attention(cfg: ModelConfig, params, x, *, positions, window=None,
                               bidirectional=bidirectional,
                               prefix_len=prefix_len)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
+    if packed is not None:
+        fn = (partial(_packed_write_attend_tp, cfg, kv_shard)
+              if kv_shard is not None else partial(_packed_write_attend, cfg))
+        out = fn(q, k, v, cache["k"], cache["v"], packed)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
     if paged is not None:
         fn = (partial(_paged_write_attend_tp, cfg, kv_shard)
               if kv_shard is not None else partial(_paged_write_attend, cfg))

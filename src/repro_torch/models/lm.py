@@ -16,7 +16,10 @@ a bidirectional prefix (PaliGemma's prefix-LM). The decode step is
 text-only, as the reference's is; it runs every kind one token at a time
 on the gather plane; chunks (S > 1) and the paged plane need
 absolute-position KV caches, G and M layers only, and raise elsewhere, as
-the reference does.
+the reference does. ``lm_decode_step`` takes a (B, S) grid of every
+slot's feed; ``lm_packed_step``, the serve engine's paged step, takes the
+same feeds as packed token rows, one row a real token, and computes the
+same function without the grid's padding rows.
 
 With a ``MeshContext`` over a ``DeviceMesh`` (the mesh path: parameters,
 batch and cache are DTensors), each sublayer's weights are gathered over
@@ -130,8 +133,8 @@ def _on_mesh(mesh_ctx) -> bool:
 
 def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                     cache=None, cache_pos=None, cache_valid_len=None,
-                    paged=None, prefix_len: int = 0, kv_shard=None,
-                    mesh_ctx=None):
+                    paged=None, packed=None, prefix_len: int = 0,
+                    kv_shard=None, mesh_ctx=None):
     """One sublayer. Without ``cache`` the training/prefill form (L and R
     layers see ``cfg.window``; attention sees an image prefix of
     ``prefix_len`` positions); with it a decode, which writes the layer's
@@ -177,8 +180,8 @@ def _apply_sublayer(cfg: ModelConfig, kind: str, prm, h, *, positions,
                               window=window, cache=cache,
                               cache_pos=cache_pos,
                               cache_valid_len=cache_valid_len, paged=paged,
-                              prefix_len=prefix_len, kv_shard=kv_shard,
-                              mesh_ctx=mesh_ctx)
+                              packed=packed, prefix_len=prefix_len,
+                              kv_shard=kv_shard, mesh_ctx=mesh_ctx)
     if cfg.post_norms:
         attn_out = L.norm(cfg, prm["ln1_post"], attn_out)
     h = h + attn_out
@@ -366,7 +369,7 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ``NotImplementedError`` there.
 
     Returns (logits (B,1,vocab), cache)."""
-    pat, n_rep, tail = unit_pattern(cfg)
+    pat, _, tail = unit_pattern(cfg)
     B, S = tokens.shape
     mesh = _on_mesh(mesh_ctx)
     if mesh:
@@ -413,14 +416,8 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                                paged=paged, kv_shard=kv_shard,
                                mesh_ctx=mesh_ctx)
 
-    for li in range(n_rep):
-        for key in _unit_keys(pat):
-            prm = tree_map(lambda t: t[li], params["stack"][key])
-            layer_cache = {n: c[li] for n, c in cache["stack"][key].items()}
-            h = apply(key.split("_")[1], prm, layer_cache, h)
-    for i, k in enumerate(tail):
-        key = f"tail_{i}_{k}"
-        h = apply(k, params[key], cache[key], h)
+    for kind, prm, layer_cache in _decode_layers(cfg, params, cache):
+        h = apply(kind, prm, layer_cache, h)
     if S > 1 or seq_lens is not None:
         # unembed only each row's last real token (padded rows are junk and
         # a full (B,S,V) logit tensor is wasted work)
@@ -431,6 +428,52 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     h = L.norm(cfg, _final_norm(cfg, params, mesh_ctx), h)
     return L.unembed(cfg, params["embed"], h, mesh_ctx if mesh else None), \
         cache
+
+
+def _decode_layers(cfg: ModelConfig, params, cache):
+    """(kind, params, cache) of each layer in order: the stacked unit's
+    repeats, then the tail."""
+    pat, n_rep, tail = unit_pattern(cfg)
+    for li in range(n_rep):
+        for key in _unit_keys(pat):
+            yield (key.split("_")[1],
+                   tree_map(lambda t: t[li], params["stack"][key]),
+                   {n: c[li] for n, c in cache["stack"][key].items()})
+    for i, k in enumerate(tail):
+        key = f"tail_{i}_{k}"
+        yield k, params[key], cache[key]
+
+
+def lm_packed_step(cfg: ModelConfig, params, pool, tokens,
+                   rows: L.PackedRows, *, kv_shard=None):
+    """One step of the paged plane on packed token rows: ``tokens`` (T,)
+    holds every token the step feeds, a decoding slot's one and a
+    prefilling slot's chunk, and padding rows after them; ``rows`` (a
+    ``layers.PackedRows``) gives each row's position, pool write and place
+    in K1's query tile. Every layer runs on the T rows as one (1, T, d)
+    sequence, RoPE at each row's own position; each row's K/V is written
+    into ``pool`` (the KV pool tree, as ``lm_decode_step``'s paged plane
+    takes it) in place, a padding row's into the junk row 0 only, and the
+    attention runs K1 on the (B, S) tile. G and M layers only. ``kv_shard``
+    as in ``lm_decode_step``.
+
+    The same function as ``lm_decode_step``'s paged plane on the (B, S)
+    grid of the same feeds, without its padding rows. Returns (the logits
+    (B, 1, vocab) of each slot's last row, ``rows.last``; pool)."""
+    pat, _, tail = unit_pattern(cfg)
+    unsupported = set(pat + tail) - {"G", "M"}
+    if unsupported:
+        raise NotImplementedError(
+            "packed rows need absolute-position KV caches; layer kinds "
+            f"{sorted(unsupported)} are rolling/recurrent")
+    h = L.embed(cfg, params["embed"], tokens[None])
+    positions = rows.pos[None]
+    for kind, prm, layer_cache in _decode_layers(cfg, params, pool):
+        h = _apply_sublayer(cfg, kind, prm, h, positions=positions,
+                            cache=layer_cache, packed=rows,
+                            kv_shard=kv_shard)
+    h = L.norm(cfg, params["ln_f"], h[0, rows.last][:, None])
+    return L.unembed(cfg, params["embed"], h), pool
 
 
 def _check_mesh_decode(pos, S, seq_lens, paged_tables, kv_shard) -> None:

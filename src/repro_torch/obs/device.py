@@ -9,8 +9,10 @@ once and turns each pair into an ``X`` span named ``step.device`` on the
 engine's ``device`` lane (``TID_DEVICE``), timed as the anchor's wall
 plus each event's elapsed time from the anchor, an event recorded right
 after a synchronize at attach. Its args are the step index ``n``, the
-step signature ``S`` and ``NW`` (None on the gather plane) and ``mode``,
-how the step program ran it: ``eager``, ``capture`` or ``replay``.
+step signature (``T``, ``S``, ``NW``: on the paged plane the packed rows,
+K1's tile width and the table width; on the gather plane the grid's width
+``S``, the other two None) and ``mode``, how the step program ran it:
+``eager``, ``capture`` or ``replay``.
 
 On the CPU the step runs synchronously, so a pair is the host's wall at
 the step program's begin and end, and the same span comes out.
@@ -77,13 +79,14 @@ class DeviceSteps:
             self._begin[i] = self.rec.wall()
         self._vt[i] = self.rec.vt
 
-    def end(self, n: int, S: int, NW: Optional[int], mode: str) -> None:
+    def end(self, n: int, S: int, NW: Optional[int], mode: str,
+            T: Optional[int] = None) -> None:
         i = self._next % self.capacity
         if self.cuda:
             self._end[i].record()
         else:
             self._end[i] = self.rec.wall()
-        self._args[i] = {"n": n, "S": S, "NW": NW, "mode": mode}
+        self._args[i] = {"n": n, "T": T, "S": S, "NW": NW, "mode": mode}
         self._next += 1
         if self._next - self._flushed > self.capacity:
             self._flushed += 1

@@ -4,8 +4,14 @@ on both of its data planes.
 
 * **Chunked prefill** — each engine step feeds up to ``prefill_chunk``
   prompt tokens per slot through one batched decode step; prefill-chunk
-  slots and decode slots share the dispatch, decode rows right-padded and
-  masked.
+  slots and decode slots share the dispatch. On the paged plane the step
+  runs on packed token rows (``step_graph.pack_feed``,
+  ``models.lm_packed_step``): a decoding slot's one token and each
+  prefilling slot's chunk, one after another, padded only to a bucket of
+  rows (B up to B tokens, else the next multiple of the chunk), so a
+  decoding slot costs one row whether or not another slot prefills. On
+  the gather plane the step is a (B, S) grid, every slot's feed
+  right-padded to the widest and masked.
 * **Zero-copy paged attention** (``paged=True``) — the ``KVBlockPool`` is
   the ONLY KV storage. Each slot owns a *block table* (host-side list of
   pool rows); a prefix hit appends the store's rows to the table (zero
@@ -28,8 +34,9 @@ on both of its data planes.
   detection is on).
 * **The step as one captured program** (``step_graph.StepProgram``, the
   counterpart of the reference's jitted ``_step_fn``) — on the card each
-  step signature, (S, NW) on the paged plane and S on the gather plane,
-  runs eagerly when first seen, is captured into a CUDA graph (the
+  step signature, (T, S, NW) on the paged plane (packed rows, K1's tile
+  width, table width) and S on the gather plane, runs eagerly when first
+  seen, is captured into a CUDA graph (the
   kernels launched inside it) when seen again, and replays from then on
   (``cuda_graphs``); on the CPU the same program runs eagerly.
 
@@ -86,7 +93,7 @@ from .host_pool import HostBlockPool
 from .kv_pool import KVBlockPool, chain_block_nbytes
 from .prefix_store import PrefixStore
 from .scheduler import QueueFull, Scheduler, StepCostModel, make_scheduler
-from .step_graph import StepProgram
+from .step_graph import DenseFeed, StepProgram, pack_feed
 from .tiered import TieredKVStore
 
 # pool rows a default-constructed engine starts with when the store's byte
@@ -223,15 +230,18 @@ class ServeEngine:
                                 shard_ctx=self.kv_shard)
         if self.paged:
             self.cache = None
-            # every right-padded / inactive-slot token is scattered into
-            # this reserved row, so real rows only ever see real writes
+            # every padding row's token (and, on the dense grid, every
+            # right-padded one) is written into this reserved row, so real
+            # rows only ever see real writes
             self._junk_row = self.pool.alloc()
             assert self._junk_row == 0
             self._tables: List[List[int]] = [[] for _ in range(self.B)]
             # tables only change on admission/completion, not per decode
             # step — the step keeps the device copy, re-uploaded only when
-            # dirty
+            # dirty; the host keeps its last (B, NW) array for the packed
+            # rows' pool writes
             self._tables_dirty = True
+            self._tables_np: Optional[np.ndarray] = None
         else:
             self.cache = init_decode_cache(cfg, self.B, max_seq,
                                            device=self.device)
@@ -608,12 +618,10 @@ class ServeEngine:
                                _TID_ENGINE).begin()
                     if trace is not None else None)
         feeds: Dict[int, List[int]] = {}
-        use_prev = np.zeros((self.B,), bool)
         for r in decoding:
             # the feed is the previous step's argmax for this slot —
             # routed on device, never synced to host
             feeds[r.slot] = [0]
-            use_prev[r.slot] = True
             self.decoded_tokens += 1
         for r in prefilling:
             n = plan.get(r.slot, 0)
@@ -621,20 +629,17 @@ class ServeEngine:
                 feeds[r.slot] = r.prompt[r.pos:r.pos + n]
                 self.prefill_tokens += n
         fed = [r for r in active if r.slot in feeds]
-        S = max(len(f) for f in feeds.values())
-        tokens = np.zeros((self.B, S), np.int32)
-        # meta rows: pos / lens / use_prev / emits-generated / reset-done
-        meta = np.zeros((5, self.B), np.int32)
-        meta[2] = use_prev
-        for r in fed:
-            f = feeds[r.slot]
-            tokens[r.slot, :len(f)] = f
-            meta[0, r.slot] = r.pos
-            meta[1, r.slot] = len(f)
-            meta[3, r.slot] = r.pos + len(f) >= len(r.prompt)
-        for i in self._fresh_slots:
-            meta[4, i] = 1
+        # the fed slots in slot order: slot, position, tokens fed, route
+        # the last argmax in (decoding), output counts as generated
+        slot = np.array([r.slot for r in fed], np.int32)
+        pos = np.array([r.pos for r in fed], np.int32)
+        n = np.array([len(feeds[r.slot]) for r in fed], np.int32)
+        route = np.array([r.pos >= len(r.prompt) for r in fed], bool)
+        emit = pos + n >= np.array([len(r.prompt) for r in fed])
+        reset = np.zeros((self.B,), bool)
+        reset[list(self._fresh_slots)] = True
         self._fresh_slots.clear()
+        S = int(n.max())
         if self.paged and self._tables_dirty:
             # attention costs scale with the widest ACTIVE table, not
             # max_seq. Bucketed to multiples of 4 so the table widths the
@@ -645,30 +650,46 @@ class ServeEngine:
             for r in active:
                 tab = self._tables[r.slot]
                 tables[r.slot, :len(tab)] = tab
+            self._tables_np = tables
             self._tables_dirty = False
         else:
             tables = None
+        if self.paged:
+            feed = pack_feed(
+                self.B, self.prefill_chunk, self.store.block_tokens,
+                self._tables_np, slot, pos, n, route, emit, reset,
+                np.fromiter(itertools.chain.from_iterable(
+                    feeds[r.slot] for r in fed), np.int32, int(n.sum())))
+        else:
+            tokens = np.zeros((self.B, S), np.int32)
+            for r in fed:
+                f = feeds[r.slot]
+                tokens[r.slot, :len(f)] = f
+            # meta rows: pos / lens / use_prev / emits-generated /
+            # reset-done
+            meta = np.zeros((5, self.B), np.int32)
+            meta[:4, slot] = pos, n, route, emit
+            meta[4] = reset
+            feed = DenseFeed(tokens, meta)
         # one batched step on the device: the previous argmax routed into
         # the decode feeds, the KV written in place, the (B,) argmax left
         # on the device
         if trace is not None:
             self.device_steps.begin()
         out_tok = self.step_program(
-            self.pool.buffers if self.paged else self.cache, tokens, meta,
-            tables)
+            self.pool.buffers if self.paged else self.cache, feed, tables)
         if trace is not None:
-            key = self.step_program.key
-            self.device_steps.end(self.steps, S, key[1] if self.paged
-                                  else None, self.step_program.mode)
+            sig = self.step_program.key_args
+            self.device_steps.end(self.steps, sig["S"], sig["NW"],
+                                  self.step_program.mode, T=sig["T"])
         if dispatch is not None:
             dispatch.end(args={"S": S, "fed": len(fed),
                                "decoding": len(decoding)})
         self.steps += 1
         # prefill attention reads this step: a prompt chunk of ``lens``
         # tokens attends over a context ending at pos + lens
-        pre = (meta[2] == 0) & (meta[1] > 0)
-        attn_pairs = int((meta[1] * (meta[0] + meta[1]) * pre).sum())
-        self.now += float(self.clock(int(meta[1].sum()) - len(decoding),
+        attn_pairs = int((n * (pos + n) * ~route).sum())
+        self.now += float(self.clock(int(n.sum()) - len(decoding),
                                      len(decoding), attn_pairs))
         stall = getattr(self.store, "pending_stall", 0.0)
         if stall:
@@ -794,6 +815,15 @@ class ServeEngine:
     def _cache_bytes(self) -> int:
         return 0 if self.cache is None else sum(
             t.numel() * t.element_size() for _, t in tree_paths(self.cache))
+
+    def step_rows(self) -> Dict[str, int]:
+        """The token rows the steps fed (``rows_real``) and the rows they
+        computed (``rows_run``: the packed rows on the paged plane, B x S
+        on the gather plane); their quotient is the share of computed rows
+        that carried a token. Kept out of ``metrics()``, which holds the
+        reference engine's keys."""
+        return {"rows_real": self.step_program.rows_real,
+                "rows_run": self.step_program.rows_run}
 
     def metrics(self) -> Dict[str, float]:
         m = dict(self.store.metrics())

@@ -8,7 +8,11 @@ recorder attached, and a pool that grows mid-run; each kernel must have
 been launched ``n_layers`` times a step in both, by its wrapper in the
 eager steps and by the graphs' kernel nodes in the replayed ones, each
 capture recording ``n_layers`` of them; and a capture that meets a host
-sync must raise, not run the step eagerly.
+sync must raise, not run the step eagerly. The paged plane's packed step
+(``lm_packed_step``), captured, must equal its own eager run bit for bit
+and the dense (B, S) grid's step within bf16's rounding, at qwen2-7b's
+head grouping (G=7) and qwen1.5-110b's (G=8), with and without the TP
+path on a one-rank group.
 
 These tests need a GPU and nvcc; elsewhere they skip. Run them on the
 card with
@@ -24,6 +28,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.models import (decode_cache_shapes,  # noqa: E402
+                                lm_decode_step, lm_packed_step)
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  paged_decode_attention)
 from repro_torch.models import init_params, model_spec  # noqa: E402
@@ -32,6 +38,7 @@ from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.obs.device import PORT_CATEGORIES  # noqa: E402
 from repro_torch.serve import PrefixStore, ServeEngine  # noqa: E402
 from repro_torch.serve import step_graph  # noqa: E402
+from repro_torch.sharding import serve_tp_context  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -196,12 +203,13 @@ def test_capture_meeting_a_host_sync_raises(dev, monkeypatch, arch, paged,
     params = init_params(model_spec(cfg),
                          torch.Generator(device=dev).manual_seed(0), dev,
                          dtype=torch.float32)
-    decode = step_graph.lm_decode_step
-
-    def syncing(cfg, params, kv, tok, pos, **kw):
-        int(tok.sum().item())
-        return decode(cfg, params, kv, tok, pos, **kw)
-    monkeypatch.setattr(step_graph, "lm_decode_step", syncing)
+    # the gather plane's step, and the paged plane's on packed rows
+    for name in ("lm_decode_step", "lm_packed_step"):
+        def syncing(cfg, params, kv, tok, *a, _step=getattr(step_graph, name),
+                    **kw):
+            int(tok.sum().item())
+            return _step(cfg, params, kv, tok, *a, **kw)
+        monkeypatch.setattr(step_graph, name, syncing)
     eng = _engine(cfg, params, dev, paged, chunk, True)
     for p in workload(cfg.vocab):
         eng.submit(p, max_new=4)
@@ -279,3 +287,84 @@ def test_graph_kernels_counts_a_child_graphs_kernels(dev):
     assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
     assert kind.value == step_graph._CHILD_GRAPH_NODE == 4
     assert step_graph.graph_kernels(parent.raw_cuda_graph()) == own + inner
+
+
+@pytest.fixture(scope="module")
+def tp1():
+    """A one-rank NCCL group of this process's own (serve TP at tp=1),
+    torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    ctx = serve_tp_context(1, torch.device("cuda"))
+    yield ctx
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("tp", [False, True], ids=["plain", "tp1"])
+@pytest.mark.parametrize("heads,kv", [(14, 2), (16, 2)], ids=["G7", "G8"])
+def test_packed_step_captured_and_against_the_grid(dev, request, heads, kv,
+                                                   tp):
+    """bf16, D=128, 2 layers, 5 slots of 16-token blocks, a 64-token
+    chunk: a decoding slot, a full and a partial chunk, an idle slot and
+    an empty one. The packed step captured into a CUDA graph gives its
+    eager run's logits bit for bit (the pool's writes repeat the same
+    values); against the dense paged ``lm_decode_step`` on the (B, S) grid
+    of the same feeds, from the same pool, each fed slot's logits agree
+    within bf16's rounding."""
+    kv_shard = request.getfixturevalue("tp1") if tp else None
+    cfg = configs.get("qwen2_7b", smoke=True).replace(
+        n_layers=2, d_model=256, n_heads=heads, n_kv_heads=kv, d_head=128,
+        d_ff=512, dtype=torch.bfloat16)
+    params = init_params(model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=torch.bfloat16)
+    B, bt, nw, chunk = 5, 16, 8, 64
+    rng = np.random.default_rng(0)
+    tables = np.zeros((B, nw), np.int32)
+    tables[:4] = rng.permutation(np.arange(1, 1 + 4 * nw)).reshape(4, nw)
+    slot = np.array([0, 1, 2], np.int32)
+    pos = np.array([70, 0, 64], np.int32)
+    n = np.array([1, 64, 23], np.int32)
+    tokens = rng.integers(0, cfg.vocab, int(n.sum())).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    shapes = decode_cache_shapes(cfg, 1 + B * nw, bt)
+    pool0 = {"stack": {k: {n_: torch.randn(s_, generator=g, device=dev,
+                                           dtype=cfg.dtype)
+                           for n_, s_ in v.items()}
+                       for k, v in shapes["stack"].items()}}
+
+    def fresh():
+        return {"stack": {k: {n_: t.clone() for n_, t in v.items()}
+                          for k, v in pool0["stack"].items()}}
+    feed = step_graph.pack_feed(B, chunk, bt, tables, slot, pos, n,
+                                np.zeros(3, bool), np.ones(3, bool),
+                                np.zeros(B, bool), tokens)
+    assert (feed.T, feed.S) == (128, 64)
+    tab = torch.from_numpy(tables).to(dev)
+    buf = torch.from_numpy(feed.data).to(dev)
+    tok, rows, _, _, _ = step_graph.unpack(buf, B, feed.T, feed.S, tab)
+    pool = fresh()
+    eager = lm_packed_step(cfg, params, pool, tok[:-1], rows,
+                           kv_shard=kv_shard)[0].clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lm_packed_step(cfg, params, pool, tok[:-1], rows,
+                             kv_shard=kv_shard)[0]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    grid = np.zeros((B, 64), np.int32)
+    grid[0, 0], grid[1], grid[2, :23] = tokens[0], tokens[1:65], tokens[65:]
+    dpos, lens = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    dpos[slot], lens[slot] = pos, n
+    dense, _ = lm_decode_step(
+        cfg, params, fresh(), torch.from_numpy(grid).to(dev),
+        torch.from_numpy(dpos).to(dev),
+        seq_lens=torch.from_numpy(lens).to(dev), paged_tables=tab,
+        kv_shard=kv_shard)
+    got, want = eager[slot].float(), dense[slot].float()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 0.03 * scale, \
+        ((got - want).abs().max().item(), scale)

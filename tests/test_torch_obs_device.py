@@ -156,16 +156,17 @@ def test_one_device_span_a_step_in_order(models, arch, paged, chunk):
         assert p["wall"] + p["dur_wall"] <= d["wall"] + d["dur_wall"] \
             <= s["wall"] + s["dur_wall"]
         assert d["args"]["mode"] == p["name"] == "eager"
-        assert (d["args"]["S"], d["args"]["NW"]) == \
-            (p["args"]["S"], p["args"]["NW"])
+        assert (d["args"]["T"], d["args"]["S"], d["args"]["NW"]) == \
+            (p["args"]["T"], p["args"]["S"], p["args"]["NW"])
         assert (p["args"]["NW"] is not None) == paged
+        assert (p["args"]["T"] is not None) == paged
     assert eng.device_steps.dropped == 0
     assert rec._meta[(3, TID_DEVICE)] == "device"
     # eagerly on the CPU, every call a first sighting or not
     assert eng.step_program.eager_steps == eng.steps
     assert eng.step_program.signatures == {
-        (d["args"]["S"], d["args"]["NW"]) if paged else (d["args"]["S"],)
-        for d in dev}
+        (d["args"]["T"], d["args"]["S"], d["args"]["NW"]) if paged
+        else (d["args"]["S"],) for d in dev}
 
 
 @pytest.mark.parametrize("arch,paged,chunk", PLANES)
@@ -195,7 +196,7 @@ def test_captured_program_modes_add_up(models, monkeypatch, arch, paged,
     seen = Counter()
     for e in _spans(rec, "device"):
         a = e["args"]
-        key = (a["S"], a["NW"])
+        key = (a["T"], a["S"], a["NW"])
         seen[key] += 1
         assert a["mode"] == {1: "eager", 2: "capture"}.get(seen[key],
                                                            "replay")
@@ -231,8 +232,13 @@ def test_ring_keeps_the_newest_past_its_capacity():
     ring.begin()
     ring.end(10, 1, 4, "replay")
     assert ring.flush() == 1 and ring.dropped == 6
-    assert rec.events[-1]["args"] == {"n": 10, "S": 1, "NW": 4,
-                                      "mode": "replay"}
+    assert rec.events[-1]["args"] == {"n": 10, "T": None, "S": 1,
+                                      "NW": 4, "mode": "replay"}
+    ring.begin()
+    ring.end(11, 64, 8, "capture", T=128)
+    assert ring.flush() == 1
+    assert rec.events[-1]["args"] == {"n": 11, "T": 128, "S": 64,
+                                      "NW": 8, "mode": "capture"}
 
 
 def test_sharded_frontend_flushes_every_shard(models):

@@ -335,6 +335,58 @@ def test_mesh1_engine_bit_identical(models, runs, tp1):
     assert mesh == _tiers(_jax_meshless(models, case))[0]
 
 
+def test_packed_step_on_a_one_rank_group(models, tp1):
+    """The packed rows' step (``lm_packed_step``) through the TP path on a
+    one-rank group (the head slice is all heads, the all-gather runs)
+    equals the step without a group bit for bit, logits and pool, and the
+    dense paged step on the group within f32, on a mix of a decoding
+    slot, a full and a partial chunk and an idle slot."""
+    from repro_torch.models import (decode_cache_shapes, lm_decode_step,
+                                    lm_packed_step, tree_paths)
+    from repro_torch.serve.step_graph import pack_feed, unpack
+    _, _, tcfg, tparams = models
+    B, nw = 4, 4
+    tables = np.arange(1, 1 + B * nw, dtype=np.int32).reshape(B, nw)
+    slot = np.array([0, 1, 2], np.int32)
+    pos = np.array([13, 8, 16], np.int32)
+    n = np.array([1, 8, 3], np.int32)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, tcfg.vocab, int(n.sum())).astype(np.int32)
+    g = torch.Generator().manual_seed(0)
+    pool0 = {k: {n_: torch.randn(s, generator=g) for n_, s in v.items()}
+             for k, v in decode_cache_shapes(
+                 tcfg, 1 + B * nw, BT)["stack"].items()}
+    feed = pack_feed(B, 8, BT, tables, slot, pos, n,
+                     np.zeros(3, bool), np.ones(3, bool), np.zeros(B, bool),
+                     tokens)
+    tok, rows, _, _, _ = unpack(torch.from_numpy(feed.data), B, feed.T,
+                                feed.S, torch.from_numpy(tables))
+    outs = []
+    for shard in (None, tp1):
+        pool = {"stack": {k: {n_: t.clone() for n_, t in v.items()}
+                          for k, v in pool0.items()}}
+        logits, _ = lm_packed_step(tcfg, tparams, pool, tok[:-1], rows,
+                                   kv_shard=shard)
+        outs.append((logits, pool))
+    (plain, p_pool), (grouped, g_pool) = outs
+    assert torch.equal(plain, grouped)
+    for (_, a), (_, b) in zip(tree_paths(p_pool), tree_paths(g_pool)):
+        assert torch.equal(a, b)
+    grid = np.zeros((B, 8), np.int32)
+    grid[0, 0], grid[1], grid[2, :3] = tokens[0], tokens[1:9], tokens[9:]
+    dpos, lens = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    dpos[slot], lens[slot] = pos, n
+    pool = {"stack": {k: {n_: t.clone() for n_, t in v.items()}
+                      for k, v in pool0.items()}}
+    dense, _ = lm_decode_step(tcfg, tparams, pool, torch.from_numpy(grid),
+                              torch.from_numpy(dpos),
+                              seq_lens=torch.from_numpy(lens),
+                              paged_tables=torch.from_numpy(tables),
+                              kv_shard=tp1)
+    np.testing.assert_allclose(grouped[slot].numpy(), dense[slot].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("tiered", [False, True], ids=["paged", "tiered"])
 @pytest.mark.parametrize("policy", ["lru", "lerc"])
 def test_tp_engines_token_identical(models, runs, tp1, policy, tiered):

@@ -46,9 +46,9 @@ def req(ph, rid, wall, event=None):
             "args": {"event": event} if event else {"rid": rid}}
 
 
-def dev(n, wall, dur, mode):
-    return X("step.device", "device", wall, dur, tid=5, n=n, S=1, NW=4,
-             mode=mode)
+def dev(n, wall, dur, mode, S=1, T=None):
+    return X("step.device", "device", wall, dur, tid=5, n=n, T=T, S=S,
+             NW=4, mode=mode)
 
 
 # a window of [1, 2): request 1 submitted at 1.0, admitted in step 0 at
@@ -72,7 +72,7 @@ EVENTS = [
     X("dispatch", "engine", 1.5, 0.2),                # not a store call
     req("b", 2, 0.7),
     req("n", 2, 1.6, "admitted"),
-    dev(3, 1.6, 0.1, "replay"),
+    dev(3, 1.6, 0.1, "replay", S=64, T=128),
     dev(4, 1.9, 0.2, "replay"),                       # ends past the window
     req("b", 3, 1.95),
     req("n", 3, 2.1, "admitted"),
@@ -105,6 +105,39 @@ def test_readings_by_hand():
     assert r["queue_wait_p90_ms"] == pytest.approx(80)
     assert r["prefill_p90_ms"] == pytest.approx(350)
     assert r["step_device_ms"] == pytest.approx(75)
+
+
+def test_replays_split_by_kind_and_rows():
+    """The window's replayed steps: step 2 fed one token a slot (S=1, no
+    T), step 3 carried a chunk on 128 packed rows; step 4 ends past the
+    window and the capture is not a replay. The rows' share reads the
+    engine's counters, and nothing without them."""
+    r = split.replay_ms_by_kind(EVENTS, 1.0, 2.0)
+    assert r == {"decode_only": {"steps": 1, "mean_ms": pytest.approx(50),
+                                 "steps_by_T": {None: 1}},
+                 "prefill": {"steps": 1, "mean_ms": pytest.approx(100),
+                             "steps_by_T": {128: 1}}}
+    assert split.replay_ms_by_kind([], 0.0, 1.0)["prefill"] == {
+        "steps": 0, "mean_ms": None, "steps_by_T": {}}
+    assert split.row_share({"rows_real": 10, "rows_run": 40},
+                           {"rows_real": 70, "rows_run": 160}) == {
+        "rows_real": 60, "rows_run": 120, "real_share": 0.5}
+    assert split.row_share(None, None)["real_share"] is None
+
+
+def test_host_build_is_dispatch_less_its_program_span():
+    """Two dispatches in the window, each holding a program span: 10 and
+    30 ms outside it; one before the window is left out."""
+    events = [X("dispatch", "engine", 0.5, 0.05),
+              X("eager", "program", 0.51, 0.02),
+              X("dispatch", "engine", 1.0, 0.05),
+              X("replay", "program", 1.01, 0.04),
+              X("dispatch", "engine", 1.5, 0.05),
+              X("capture", "program", 1.52, 0.02)]
+    r = split.host_build_ms(events, 1.0, 2.0)
+    assert r["steps"] == 2
+    assert r["mean_ms"] == pytest.approx(20)
+    assert split.host_build_ms(events[:1], 0.0, 1.0) is None
 
 
 def test_waits_are_named_by_the_innermost_span():
@@ -204,6 +237,13 @@ def test_traced_tiny_cell_reports_its_readings(monkeypatch, workload):
         assert w["modes"]["replay"] > 0
         assert w["host_wait_s"] == pytest.approx(
             w["window_s"] - w["device_s"], abs=1e-6)
+    rows = out["device_window"]["rows"]
+    assert 0 < rows["rows_real"] <= rows["rows_run"]
+    assert 0 < rows["real_share"] <= 1
+    assert out["device_window"]["host_build"]["mean_ms"] > 0
+    kinds = out["device_window"]["replays_by_kind"]
+    assert sum(k["steps"] for k in kinds.values()) == \
+        out["device_window"]["modes"]["replay"]
     # each harness step matched to its device span, the mark after its end
     c = out["clock"]
     assert c["steps_matched"] == out["device_window"]["harness_steps"]
