@@ -208,10 +208,10 @@ class HostClock(EventClock):
 
 # ------------------------------------------------------------------ engine
 def block_nbytes(cfg: Dict, block_tokens: int) -> int:
-    """Bytes of one chain block of bf16 K and V over all layers."""
-    D = flops.head_dim(cfg)
-    return (2 * cfg["num_hidden_layers"] * block_tokens
-            * cfg["num_key_value_heads"] * D * flops.BF16_BYTES)
+    """Bytes of one chain block of the bf16 cache over all layers: K and
+    V rows, or latent rows (``flops.cache_elements``)."""
+    return (cfg["num_hidden_layers"] * block_tokens
+            * flops.cache_elements(cfg) * flops.BF16_BYTES)
 
 
 def build_engine(cfg: Dict, weights, device, slots: Optional[int] = None):

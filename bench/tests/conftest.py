@@ -1,7 +1,7 @@
 """Shared pieces of the benchmark's CPU tests: the import path, and each
 cell of ``BENCHMARK.json`` cut to a size a CPU test run holds (two layers
-of width 64, four slots, eight short documents) with the program's plain
-versions underneath."""
+of width 64, or the configuration's own "tiny" cut; four slots, eight
+short documents) with the program's plain versions underneath."""
 import copy
 import json
 import sys
@@ -25,15 +25,27 @@ from bench import harness  # noqa: E402
 TINY_LIMIT = 0.08
 
 
-def tiny_cell(workload: str, manifest=None) -> harness.Cell:
+# The cut a configuration without a "tiny" key gets: two dense GQA layers
+# of width 64. A configuration of another kind (latent attention,
+# experts) states its own cut under "tiny": the Hugging Face keys it
+# overrides, and under "program" the program's fields.
+DEFAULT_CUT = {
+    "hidden_size": 64, "intermediate_size": 128, "num_attention_heads": 4,
+    "num_key_value_heads": 2, "num_hidden_layers": 2, "vocab_size": 512,
+    "program": {"n_layers": 2, "d_model": 64, "n_heads": 4,
+                "n_kv_heads": 2, "d_head": 16, "d_ff": 128, "vocab": 512}}
+
+
+def tiny_cell(workload: str, manifest=None,
+              bench_dir=ROOT / "bench") -> harness.Cell:
     manifest = manifest or json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = harness.resolve_cell(manifest, workload)
+    cell = harness.resolve_cell(manifest, workload, bench_dir)
     c = copy.deepcopy(cell.config)
-    c.update(hidden_size=64, intermediate_size=128, num_attention_heads=4,
-             num_key_value_heads=2, num_hidden_layers=2, vocab_size=512,
-             store_blocks=24)
-    c["program"].update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                        d_head=16, d_ff=128, vocab=512)
+    cut = copy.deepcopy(c.get("tiny", DEFAULT_CUT))
+    program = cut.pop("program", {})
+    c["store_blocks"] = 24
+    c.update(cut)
+    c["program"].update(program)
     c["serve"].update(max_slots=4, max_seq=512, prefill_chunk=16)
     c["check"].update(max_logit_gap=TINY_LIMIT, served_tokens=64)
     t = copy.deepcopy(cell.traffic)

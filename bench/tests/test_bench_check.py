@@ -5,16 +5,19 @@ serving cell can have."""
 import time
 
 import pytest
-import torch
 
 from conftest import TINY_LIMIT, tiny_cell
 from bench import harness
 
-CELLS = ["qwen2-7b.rag-zipf", "qwen1.5-110b-s10.unique-backlog"]
+# Long enough that a loaded CPU still finishes the check's 64 served
+# tokens (4 s served 28-63 of them under load).
+WINDOW_S = 8.0
+CELLS = ["qwen2-7b.rag-zipf", "qwen1.5-110b-s10.unique-backlog",
+         "qwen1.5-110b-s10.rag-zipf"]
 
 
 def run(workload, seed, control=False):
-    return harness.run_cell(tiny_cell(workload), seed, 4.0, False, "cpu",
+    return harness.run_cell(tiny_cell(workload), seed, WINDOW_S, False, "cpu",
                             time.time(), control=control)
 
 
@@ -45,16 +48,16 @@ def _alter_token(monkeypatch):
 
 
 def _state_unchanged(monkeypatch):
-    """The step writes no K or V into the pool: attention reads the state
-    as it was."""
+    """The step writes no K or V into the pool: each layer attends over
+    a copy of the pool that takes the step's rows, and the pool keeps the
+    state as it was."""
     from repro_torch.models import layers
+    real = layers._packed_write_attend
 
-    def attend_only(cfg, q, k, v, kp, vp, tables, lens, cache_pos):
-        steps = torch.arange(q.shape[1], dtype=torch.int32)
-        tpos = cache_pos[:, None].int() + steps[None, :]
-        return layers._paged_attention(cfg, q, kp, vp, tables, tpos), kp, vp
+    def attend_only(cfg, q, k, v, kp, vp, rows):
+        return real(cfg, q, k, v, kp.clone(), vp.clone(), rows)
 
-    monkeypatch.setattr(layers, "_paged_write_attend", attend_only)
+    monkeypatch.setattr(layers, "_packed_write_attend", attend_only)
 
 
 def _restore_wrong_block(monkeypatch):
@@ -76,7 +79,10 @@ FAULTS = [("qwen2-7b.rag-zipf", _alter_token),
           ("qwen1.5-110b-s10.unique-backlog", _alter_token),
           ("qwen2-7b.rag-zipf", _state_unchanged),
           ("qwen1.5-110b-s10.unique-backlog", _state_unchanged),
-          ("qwen2-7b.rag-zipf", _restore_wrong_block)]
+          ("qwen2-7b.rag-zipf", _restore_wrong_block),
+          ("qwen1.5-110b-s10.rag-zipf", _alter_token),
+          ("qwen1.5-110b-s10.rag-zipf", _state_unchanged),
+          ("qwen1.5-110b-s10.rag-zipf", _restore_wrong_block)]
 
 
 @pytest.mark.parametrize("workload,fault", FAULTS,

@@ -93,3 +93,42 @@ def test_a_mix_may_bring_its_own_generator(tmp_path):
     assert all(len(r.prompt) == 8 and r.max_new == 4 for r in reqs)
     changed = [p for p, data in before.items() if p.read_bytes() != data]
     assert changed == []
+
+
+def test_a_configuration_may_state_its_own_cut(tmp_path):
+    """A configuration's ``"tiny"`` key, where it has one, is its CPU cut
+    in place of the default: its Hugging Face keys and, under
+    ``program``, the program's fields it overrides."""
+    from conftest import DEFAULT_CUT
+    bench = tmp_path / "bench"
+    shutil.copytree(ROOT / "bench", bench,
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    cfg = json.loads((bench / "configs" / "qwen2-7b.json").read_text())
+    cfg["tiny"] = {"hidden_size": 48, "intermediate_size": 96,
+                   "num_attention_heads": 6, "num_key_value_heads": 3,
+                   "num_hidden_layers": 3, "vocab_size": 384,
+                   "program": {"n_layers": 3, "d_model": 48, "n_heads": 6,
+                               "n_kv_heads": 3, "d_head": 8, "d_ff": 96,
+                               "vocab": 384}}
+    (bench / "configs" / "own-cut.json").write_text(json.dumps(cfg))
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    manifest["configs"].append({"name": "own-cut", "source": "test",
+                                "file": "bench/configs/own-cut.json",
+                                "reduced": [], "why": "test"})
+    manifest["workloads"].append({"name": "own-cut.rag-zipf",
+                                  "config": "own-cut", "traffic": "rag-zipf",
+                                  "chips": 1, "why": "test"})
+    cell = tiny_cell("own-cut.rag-zipf", manifest, bench)
+    c = cell.config
+    assert (c["hidden_size"], c["num_hidden_layers"], c["vocab_size"]) == \
+        (48, 3, 384)
+    assert c["program"]["d_head"] == 8 and c["program"]["n_layers"] == 3
+    assert c["program"]["qkv_bias"] is True      # not in the cut: kept
+    assert harness.block_nbytes(c, 16) == 3 * 16 * 2 * 3 * 8 * 2
+    res = harness.run_cell(cell, 43, 4.0, False, "cpu", time.time(),
+                           bench_dir=bench)
+    assert res["correct"]
+    # a configuration without the key takes the default cut
+    plain = tiny_cell("qwen2-7b.rag-zipf").config
+    assert plain["hidden_size"] == DEFAULT_CUT["hidden_size"]
+    assert plain["program"]["d_head"] == DEFAULT_CUT["program"]["d_head"]

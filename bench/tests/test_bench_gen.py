@@ -21,7 +21,7 @@ def take(traffic, stream, n):
     return list(itertools.islice(traffic.requests(stream), n))
 
 
-@pytest.mark.parametrize("name", ["rag-zipf", "unique-backlog"])
+@pytest.mark.parametrize("name", ["rag-zipf", "rag-zipf-s10", "unique-backlog"])
 def test_same_seed_same_requests(name):
     a = take(gen.Traffic(mix(name), 152064, 2**31 + 11), "window", 80)
     b = take(gen.Traffic(mix(name), 152064, 2**31 + 11), "window", 80)
@@ -31,7 +31,7 @@ def test_same_seed_same_requests(name):
     assert [r.prompt for r in a] != [r.prompt for r in c]
 
 
-@pytest.mark.parametrize("name", ["rag-zipf", "unique-backlog"])
+@pytest.mark.parametrize("name", ["rag-zipf", "rag-zipf-s10", "unique-backlog"])
 def test_warmup_stream_is_disjoint(name):
     t = gen.Traffic(mix(name), 152064, 5)
     warm = take(t, "warmup", 200)
@@ -46,7 +46,7 @@ def test_warmup_stream_is_disjoint(name):
             assert tuple(r.prompt[:n]) in docs
 
 
-@pytest.mark.parametrize("name", ["rag-zipf", "unique-backlog"])
+@pytest.mark.parametrize("name", ["rag-zipf", "rag-zipf-s10", "unique-backlog"])
 def test_seeds_share_the_work(name):
     """Every seed offers each block's same multiset of requests (document,
     question length, output length, gap before it), in an order of its
@@ -79,22 +79,28 @@ def test_seeds_share_the_work(name):
     assert all(x != y for x, y in zip(pa, pb))
 
 
-def test_poisson_arrivals_bunch_within_the_window():
-    """A block spans the window, so the seed's order makes the counts in
-    5 s spread as a Poisson process's do (variance near the mean), while
-    the window's count stays the block's."""
-    spec = mix("rag-zipf")
+@pytest.mark.parametrize("name", ["rag-zipf", "rag-zipf-s10"])
+def test_poisson_arrivals_bunch_within_the_window(name):
+    """A block spans the window, and its requests' order as the harness
+    serves it (salt 0: the seed's, or under ``"order": "block"`` the one
+    arrangement every seed gets) makes the counts in 1 s and 5 s spread
+    as a Poisson process's do (variance near the mean), while the
+    window's count stays the block's."""
+    spec = mix(name)
     rate = spec["arrival"]["rate_per_s"]
     assert spec["block"] >= rate * 51
-    counts, due = [], set()
+    counts = {1.0: [], 5.0: []}
+    due = set()
     for seed in range(40):
         t = gen.Traffic(spec, 152064, 2**31 + seed)
         a = np.array([r.arrival_s for r in take(t, "window", spec["block"])])
-        counts += list(np.histogram(a, bins=np.arange(0.0, 50.0, 5.0))[0])
+        for width, c in counts.items():
+            c += list(np.histogram(a, bins=np.arange(0.0, 50.0, width))[0])
         due.add(int((a < 51.0).sum()))
-    counts = np.array(counts)
-    assert counts.mean() == pytest.approx(5.0 * rate, rel=0.05)
-    assert 0.6 * counts.mean() < counts.var() < 1.2 * counts.mean()
+    for width, c in counts.items():
+        c = np.array(c)
+        assert c.mean() == pytest.approx(width * rate, rel=0.05)
+        assert 0.6 * c.mean() < c.var() < 1.2 * c.mean()
     assert max(due) - min(due) <= 0.1 * rate * 51
 
 

@@ -45,7 +45,7 @@ def test_a_run_loads_the_port_and_nothing_of_jax():
         "from conftest import tiny_cell\n"
         "from bench import harness\n"
         "res = harness.run_cell(tiny_cell('qwen1.5-110b-s10.unique-backlog'),"
-        " 5, 1.0, False, 'cpu', time.time())\n"
+        " 5, 4.0, False, 'cpu', time.time())\n"
         "top = sorted({m.split('.')[0] for m in sys.modules})\n"
         "print(json.dumps([res['correct'], harness.forbidden_modules(),"
         " 'repro_torch' in top]))\n")
